@@ -1,0 +1,149 @@
+"""Build, load and launch the hand-written Hopper kernels
+(``cuda_mat_tpu_torch/csrc/const_stencil.cu``).
+
+The source is compiled with nvcc for ``sm_90a`` into a shared library with a
+plain C interface at first use (into ``cuda_mat_tpu_torch/build/``, see
+:mod:`~cuda_mat_tpu_torch.utils.build`) and bound through ctypes.  Nothing is
+built or imported from CUDA when this module is imported, so CPU-only
+installs import it freely.  Callers go through the front ends in
+:mod:`cuda_mat_tpu_torch.ops.stencil`, which send CPU tensors to the plain
+PyTorch twins and CUDA tensors here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from cuda_mat_tpu_torch.utils.build import build_library
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "const_stencil.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+MAX_TERMS = 64                # kMaxTerms of the kernels' by-value term struct
+SMEM_LIMIT = 232448           # dynamic shared memory one block may use on H100
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds = 0.0   # time the last build in this process took (0 = reused)
+
+
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library.  Raises RuntimeError
+    when nvcc is missing or the build fails — there is no fallback."""
+    global _lib, build_seconds
+    if _lib is None:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+        if nvcc is None or not os.path.exists(nvcc):
+            raise RuntimeError("nvcc not found: the CUDA kernels cannot be"
+                               " built (set CUDA_HOME)")
+        path, build_seconds = build_library([nvcc] + NVCC_FLAGS, SOURCE,
+                                            "libcmt_kernels")
+        lib = ctypes.CDLL(path)
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.cmt_const_stencil_spmv.restype = i
+        lib.cmt_const_stencil_spmv.argtypes = [i, p, p, p, p, p, i, ll, ll,
+                                               ll, ll, p]
+        lib.cmt_const_series_msolve.restype = i
+        lib.cmt_const_series_msolve.argtypes = [i, p, p, p, p, p, p, i, p, p,
+                                                i, ll, ll, ll, ll, i, i, i, p]
+        lib.cmt_cuda_error_string.restype = ctypes.c_char_p
+        lib.cmt_cuda_error_string.argtypes = [i]
+        _lib = lib
+    return _lib
+
+
+@functools.lru_cache(maxsize=64)
+def _term_arrays(terms) -> Tuple[np.ndarray, np.ndarray]:
+    return (np.asarray([t[0] for t in terms], np.int64),
+            np.asarray([t[1] for t in terms], np.float64))
+
+
+def msolve_tile(block: int) -> int:
+    """Output rows per thread block of the fused msolve kernel: a divisor of
+    ``block`` (a multiple of 1024 in every planned layout), so a tile never
+    straddles a pad boundary."""
+    return 2048 if block % 2048 == 0 else 1024
+
+
+def msolve_fits(block: int, terms_l, terms_u, itemsize: int) -> bool:
+    """The fused msolve kernel takes this layout: both polynomials fit the
+    term struct, P_l's reads over the u region stay inside the pad block,
+    and the u tile (tile + 2·halo rows) fits shared memory."""
+    h_l = max(abs(t[0]) for t in terms_l)
+    h_u = max(abs(t[0]) for t in terms_u)
+    return (len(terms_l) <= MAX_TERMS and len(terms_u) <= MAX_TERMS
+            and h_l + h_u <= block and block % 1024 == 0
+            and (msolve_tile(block) + 2 * h_u) * itemsize <= SMEM_LIMIT)
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    for t in ts:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"kernel operands must share one CUDA device,"
+                             f" got {[str(u.device) for u in ts]}")
+        if t.dtype != ts[0].dtype or t.dtype not in _DTYPE_CODE:
+            raise ValueError(f"kernel operands must all be float32 or all"
+                             f" float64, got {[u.dtype for u in ts]}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+
+
+def _raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.cmt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (code {rc})")
+
+
+def const_stencil_spmv(x_pad: torch.Tensor, gapmask: torch.Tensor, terms,
+                       np_true: int, block: int, base: int) -> torch.Tensor:
+    """Launch kernel B1 on ``x_pad``'s device and current stream."""
+    lib = library()
+    _check_cuda(x_pad, gapmask)
+    if len(terms) > MAX_TERMS:
+        raise ValueError(f"{len(terms)} stencil terms > {MAX_TERMS}")
+    y = torch.empty_like(x_pad)
+    off, c = _term_arrays(tuple(terms))
+    with torch.cuda.device(x_pad.device):
+        rc = lib.cmt_const_stencil_spmv(
+            _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(), gapmask.data_ptr(),
+            y.data_ptr(), off.ctypes.data, c.ctypes.data, len(terms),
+            x_pad.shape[0] - 2 * block, block, np_true, base,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, rc, "const_stencil_spmv")
+    return y
+
+
+def const_series_msolve(x_pad: torch.Tensor, inv_d_pad: torch.Tensor,
+                        gapmask_ext: torch.Tensor, terms_l, terms_u,
+                        np_true: int, block: int, base: int) -> torch.Tensor:
+    """Launch kernel B2 on ``x_pad``'s device and current stream."""
+    lib = library()
+    _check_cuda(x_pad, inv_d_pad, gapmask_ext)
+    if not msolve_fits(block, terms_l, terms_u, x_pad.element_size()):
+        raise ValueError("the fused msolve kernel does not take this layout"
+                         " (terms, halo or shared memory)")
+    y = torch.empty_like(x_pad)
+    off_l, c_l = _term_arrays(tuple(terms_l))
+    off_u, c_u = _term_arrays(tuple(terms_u))
+    halo = max(abs(t[0]) for t in terms_u)
+    with torch.cuda.device(x_pad.device):
+        rc = lib.cmt_const_series_msolve(
+            _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(), inv_d_pad.data_ptr(),
+            gapmask_ext.data_ptr(), y.data_ptr(), off_l.ctypes.data,
+            c_l.ctypes.data, len(terms_l), off_u.ctypes.data, c_u.ctypes.data,
+            len(terms_u), x_pad.shape[0] - 2 * block, block, np_true, base,
+            (gapmask_ext.shape[0] - block) // 2, halo, msolve_tile(block),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, rc, "const_series_msolve")
+    return y

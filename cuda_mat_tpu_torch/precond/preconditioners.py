@@ -1,0 +1,216 @@
+"""Neumann-series ILU(0) preconditioner over the gap-strided stencil layout
+(counterpart of :class:`cuda_mat_tpu.precond.preconditioners.
+NeumannILUPreconditioner`, its constant-factor path).
+
+With ``L = I + N_l`` (unit lower) and ``U = D(I + N_u)``,
+``N_u = D⁻¹ · strict_upper``:
+
+    L⁻¹ ≈ Σ_{j<k} (−N_l)ʲ        U⁻¹ ≈ (Σ_{j<k} (−N_u)ʲ) D⁻¹
+
+The factors are ILU(0) or relaxed MILU(0) values computed on the host
+(numpy, or the native factorizer), approximated by their deep-interior
+constant stencils and applied matrix-free in the operator's layout.  The
+reference's msolve role is pbicgstab.cu:92-98.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from cuda_mat_tpu_torch.formats.coo import COOMatrix
+from cuda_mat_tpu_torch.formats.csr import CSRMatrix
+from cuda_mat_tpu_torch.native import loader as _native
+from cuda_mat_tpu_torch.ops import _kernels
+from cuda_mat_tpu_torch.ops.stencil import (
+    const_factor_terms, const_series_msolve_padded, extend_gapmask,
+    msolve_halo, neumann_poly_terms, strided_offsets)
+from cuda_mat_tpu_torch.reference.cpu_solvers import ilu0_factorize
+
+
+@dataclasses.dataclass(frozen=True)
+class NeumannILUPreconditioner:
+    """``msolve`` applies the truncated Neumann-series ILU(0) to a padded
+    vector.  Modes (``fused``), as in the JAX package:
+
+    - ``"kernel"``: the whole msolve ``P_u·(inv_d ∘ P_l·x)`` in ONE launch of
+      kernel B2, the intermediate kept in shared memory;
+    - ``"series"``: each triangle's series expanded into one stencil
+      (``nl``/``nu`` are P_l/P_u), applied by two launches of kernel B1;
+    - ``False`` (sequential): ``2(k−1)`` launches of B1 on the factor
+      stencils N_l/N_u.
+
+    The first mode whose layout constraints hold is taken; the others are
+    the fallbacks the JAX package itself takes."""
+
+    nl: object             # N_l operator, or P_l when fused
+    nu: object             # N_u operator, or P_u when fused
+    inv_d: torch.Tensor    # padded 1/diag(U)
+    terms: int             # k (total series terms; k=1 degrades to Jacobi)
+    fused: object = False  # False | "series" | "kernel"
+    gap_ext: object = None  # (block + 2·hpad,) extended gapmask ("kernel")
+
+    @classmethod
+    def from_csr(cls, csr, terms: int = 3, pad_like=None,
+                 const_factors: bool = True,
+                 milu_omega: float = 0.0) -> "NeumannILUPreconditioner":
+        """``pad_like``: the :class:`~cuda_mat_tpu_torch.ops.stencil.
+        ConstStencilOperator` of A — the factors are built in its layout,
+        dtype and device.  ``milu_omega``: relaxed MILU(0) factor values
+        (0 = reference-parity ILU(0))."""
+        if pad_like is None or not const_factors:
+            raise NotImplementedError(
+                "only the constant-factor stencil preconditioner is ported;"
+                " exact restrided factors need kernel B3 (ROADMAP A6), true-n"
+                " factor operators ROADMAP A2")
+        low, up, diag = neumann_factors(csr, milu_omega)
+        nl = _const_factor_operator(low, pad_like)
+        nu = _const_factor_operator(up, pad_like)
+        inv_d = pad_like.pad_vec(1.0 / diag)
+        fl = _fused_series_operator(nl, terms)
+        fu = _fused_series_operator(nu, terms)
+        if fl is None or fu is None:
+            return cls(nl, nu, inv_d, terms)
+        itemsize = torch.empty((), dtype=pad_like.vec_dtype).element_size()
+        if _kernels.msolve_fits(pad_like.block, fl.strided_terms,
+                                fu.strided_terms, itemsize):
+            hpad = msolve_halo(fu.strided_terms)
+            gap_ext = torch.as_tensor(extend_gapmask(
+                pad_like.gapmask.cpu().numpy(), hpad)).to(pad_like.device)
+            return cls(fl, fu, inv_d, terms, fused="kernel", gap_ext=gap_ext)
+        return cls(fl, fu, inv_d, terms, fused="series")
+
+    def msolve(self, f: torch.Tensor) -> torch.Tensor:
+        if self.fused == "kernel":
+            op = self.nl
+            return const_series_msolve_padded(
+                f, self.inv_d, self.gap_ext, op.strided_terms,
+                self.nu.strided_terms, op.np_true, op.block, op.sub)
+        if self.fused:
+            return self.nu.matvec(self.inv_d * self.nl.matvec(f))
+        y = f
+        term = f
+        for _ in range(self.terms - 1):
+            term = -self.nl.matvec(term)
+            y = y + term
+        g = self.inv_d * y
+        x = g
+        term = g
+        for _ in range(self.terms - 1):
+            term = -self.nu.matvec(term)
+            x = x + term
+        return x
+
+
+def _fused_series_operator(n_op, k: int):
+    """Whole-series stencil ``P = Σ_{j<k} (−N)^j`` sharing ``n_op``'s layout,
+    or None when a polynomial offset exceeds the layout's gap width or halo
+    sub-block, or the series has more terms than kernel B1 takes (the
+    sequential series still applies)."""
+    try:
+        pt = neumann_poly_terms(n_op.terms, k, n_op.c_grid, n_op.stride)
+    except ValueError:
+        return None
+    st = strided_offsets(pt, n_op.c_grid, n_op.stride)
+    if max(abs(s[0]) for s in st) > n_op.sub or len(pt) > _kernels.MAX_TERMS:
+        return None
+    return dataclasses.replace(n_op, terms=pt, strided_terms=st)
+
+
+def _const_factor_operator(factor_csr, pad_like):
+    """Matrix-free constant-stencil operator for an ILU factor, sharing
+    ``pad_like``'s gap-strided layout (same block/sub/gapmask/padding)."""
+    fd = factor_csr.to_dia(max_diags=128)
+    terms, sterms = const_factor_terms(fd, pad_like.c_grid, pad_like.stride)
+    if max(abs(s[0]) for s in sterms) > pad_like.sub:
+        raise ValueError("factor offsets exceed the operator's halo sub-block")
+    return dataclasses.replace(pad_like, terms=terms, strided_terms=sterms)
+
+
+def neumann_factors(csr, milu_omega: float = 0.0):
+    """ILU(0)-factorize ``csr`` and split the factor for the Neumann series:
+    returns ``(N_l, N_u, diag)`` where ``N_l`` is the strict lower triangle of
+    M (unit-lower L = I + N_l), ``N_u`` is D⁻¹·strict-upper (U = D(I + N_u)),
+    both as host CSR, and ``diag`` is D.  ``milu_omega`` > 0 switches to
+    relaxed modified ILU(0) (:func:`milu0_factorize`)."""
+    mvals = _factorize(csr, milu_omega)
+    rows = np.repeat(np.arange(csr.n, dtype=np.int64), csr.row_lengths)
+    cols = csr.indices.astype(np.int64)
+    lower = cols < rows
+    upper = cols > rows
+    diag = np.zeros(csr.n)
+    diag[rows[cols == rows]] = mvals[cols == rows]
+    if np.any(diag == 0):
+        raise ValueError("ILU(0) factor has a zero diagonal")
+    if not lower.any() or not upper.any():
+        raise ValueError("matrix has an empty strict triangle; use"
+                         " precond='jacobi'")
+    low = CSRMatrix.from_coo(COOMatrix(
+        csr.n, csr.n, rows[lower].astype(np.int32),
+        cols[lower].astype(np.int32), mvals[lower]))
+    upv = mvals[upper] / diag[rows[upper]]  # D^-1 * strict upper
+    up = CSRMatrix.from_coo(COOMatrix(
+        csr.n, csr.n, rows[upper].astype(np.int32),
+        cols[upper].astype(np.int32), upv))
+    return low, up, diag
+
+
+def _factorize(csr, milu_omega: float = 0.0) -> np.ndarray:
+    """Native factorizer when it builds, else the numpy loops (minutes at
+    millions of rows — large runs should check ``native.loader.available``
+    first)."""
+    if _native.available():
+        if milu_omega:
+            return _native.milu0_factorize(csr, milu_omega)
+        return _native.ilu0_factorize(csr)
+    if milu_omega:
+        return milu0_factorize(csr, milu_omega)
+    return ilu0_factorize(csr)
+
+
+def milu0_factorize(csr, omega: float) -> np.ndarray:
+    """Relaxed modified ILU(0) (pure-numpy fallback; the native
+    ``cmt_milu0`` agrees to accumulation-order ulps): the IKJ elimination of
+    :func:`~cuda_mat_tpu_torch.reference.cpu_solvers.ilu0_factorize`
+    restricted to the pattern, but each row's *dropped* fill is summed and
+    ``omega`` times it is subtracted from the row's diagonal.  ``omega=1``
+    preserves A's row sums through L·U (classic MILU); ``0 < omega < 1``
+    keeps the factor diagonally dominant enough for the truncated Neumann
+    series."""
+    n = csr.n
+    m = csr.data.astype(np.float64).copy()
+    indptr, indices = csr.indptr, csr.indices
+    diag_pos = np.empty(n, dtype=np.int64)
+    for i in range(n):
+        lo, hi = indptr[i], indptr[i + 1]
+        js = indices[lo:hi]
+        k = np.searchsorted(js, i)
+        if k >= js.shape[0] or js[k] != i:
+            raise ValueError(
+                f"MILU(0) requires a stored nonzero diagonal (row {i})")
+        diag_pos[i] = lo + k
+    for i in range(n):
+        lo, hi = indptr[i], indptr[i + 1]
+        dropped = 0.0
+        for kk in range(lo, int(diag_pos[i])):
+            k = indices[kk]
+            pivot = m[diag_pos[k]]
+            if pivot == 0.0:
+                raise ValueError(f"MILU(0) zero pivot at row {k}")
+            m[kk] = m[kk] / pivot
+            lik = m[kk]
+            klo, khi = int(diag_pos[k]) + 1, indptr[k + 1]
+            if klo >= khi:
+                continue
+            row_i_js = indices[kk + 1:hi]
+            row_k_js = indices[klo:khi]
+            pos = np.searchsorted(row_i_js, row_k_js)
+            ok = pos < row_i_js.shape[0]
+            ok[ok] &= row_i_js[pos[ok]] == row_k_js[ok]
+            upd = lik * m[klo:khi]
+            m[kk + 1 + pos[ok]] -= upd[ok]
+            dropped += float(upd[~ok].sum())
+        m[diag_pos[i]] -= omega * dropped
+    return m

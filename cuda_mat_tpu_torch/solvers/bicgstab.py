@@ -1,0 +1,311 @@
+"""Preconditioned BiCGSTAB over padded stencil vectors, in PyTorch
+(counterpart of :mod:`cuda_mat_tpu.solvers.bicgstab`, its
+``ilu0_neumann`` stencil path).
+
+The loop keeps the JAX package's update order exactly: the flat,
+select-based body, the first-half convergence exit that does not bump the
+counter, NaN as BREAKDOWN and the ``(2·maxit,)`` residual history.  Scalars
+stay on the device as 0-d tensors.  The host reads ``status`` and ``i`` once
+per iteration (one ``torch.stack([...]).tolist()``) to decide whether to go
+on; everything else is queued without waiting.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from cuda_mat_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
+from cuda_mat_tpu_torch.formats.csr import CSRMatrix
+from cuda_mat_tpu_torch.ops.stencil import (ConstStencilOperator,
+                                            detect_const_stencil,
+                                            plan_const_neumann_layout)
+from cuda_mat_tpu_torch.precond.preconditioners import NeumannILUPreconditioner
+from cuda_mat_tpu_torch.solvers.result import SolveResult, SolverStatus
+from cuda_mat_tpu_torch.utils.timing import device_sync
+
+_RUNNING = 0
+_CONVERGED = 1
+_BREAKDOWN = 2
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+class _PState(NamedTuple):
+    i: torch.Tensor
+    status: torch.Tensor
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    v: torch.Tensor
+    rho: torch.Tensor
+    alpha: torch.Tensor
+    omega: torch.Tensor
+    nrmr: torch.Tensor
+    hist: torch.Tensor
+    rw: torch.Tensor       # the shadow residual r̂ = r_0
+    nrmr0: torch.Tensor
+
+
+class _Consts(NamedTuple):
+    """Device constants of one solve, made once so that no select or
+    comparison in the loop uploads a Python number."""
+    zero: torch.Tensor
+    one: torch.Tensor
+    tol: torch.Tensor
+    running: torch.Tensor
+    converged: torch.Tensor
+    breakdown: torch.Tensor
+
+
+def loop_constants(dt: torch.dtype, device, tol: float) -> _Consts:
+    def f(v):
+        return torch.tensor(v, dtype=dt, device=device)
+
+    def s(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+
+    return _Consts(f(0.0), f(1.0), f(tol), s(_RUNNING), s(_CONVERGED),
+                   s(_BREAKDOWN))
+
+
+def precond_init(matvec, dot, x0, b, maxit: int, c: _Consts) -> _PState:
+    """Initial state of :func:`precond_core` (reference pbicgstab.cu:75-81)."""
+    r = b - matvec(x0)
+    nrmr0 = torch.sqrt(dot(r, r))
+    i0 = torch.zeros((), dtype=torch.int32, device=b.device)
+    return _PState(i0, c.running, x0, r, r,
+                   torch.zeros_like(b), c.zero, c.one, c.one, nrmr0,
+                   torch.full((2 * maxit,), -1.0, dtype=b.dtype,
+                              device=b.device), r, nrmr0)
+
+
+def precond_step(matvec, msolve, dot, st: _PState, i: int,
+                 c: _Consts) -> _PState:
+    """One iteration of the preconditioned loop (reference gpu_pbicgstab,
+    pbicgstab.cu:83-150): two M-solve + SpMV half-steps with a convergence
+    check after each.  ``i`` is the host's copy of ``st.i``, used to place
+    this iteration's pair in the history.
+
+    Flat body: the reference's two data-dependent branches (the i==0 p-init
+    and the first-half exit) are selects around unconditionally executed
+    compute, and every divisor is select-guarded so the dead half-iteration
+    after a first-half exit can never make NaN or Inf."""
+    one = c.one
+    rhop = st.rho
+    rho = dot(st.rw, st.r)
+    first = st.i == 0
+    beta = torch.where(first, c.zero,
+                       (rho / torch.where(first, one, rhop))
+                       * (st.alpha / st.omega))
+    p = st.r + beta * (st.p - st.omega * st.v)
+    pw = msolve(p)
+    v = matvec(pw)
+    alpha = rho / dot(st.rw, v)
+    r1 = st.r - alpha * v
+    x1 = st.x + alpha * pw
+    nrmr1 = torch.sqrt(dot(r1, r1))
+    conv1 = nrmr1 < c.tol * st.nrmr0
+    s = msolve(r1)
+    t = matvec(s)
+    num_o = dot(t, r1)
+    den_o = dot(t, t)
+    omega_c = torch.where(conv1, one, num_o) / torch.where(conv1, one, den_o)
+    omega = torch.where(conv1, st.omega, omega_c)
+    x2 = torch.where(conv1, x1, x1 + omega_c * s)
+    r2 = torch.where(conv1, r1, r1 - omega_c * t)
+    nrmr2 = torch.where(conv1, nrmr1, torch.sqrt(dot(r2, r2)))
+    conv2 = (~conv1) & (nrmr2 < c.tol * st.nrmr0)
+    # the reference's preconditioned loop has no NaN guard and would spin
+    # to maxit on a float breakdown — surface BREAKDOWN instead
+    broke = (~conv1) & (~conv2) & (torch.isnan(nrmr2) | torch.isnan(alpha))
+    status = torch.where(conv1 | conv2, c.converged,
+                         torch.where(broke, c.breakdown, c.running))
+    i_next = torch.where(conv1, st.i, st.i + 1)
+    st.hist[2 * i:2 * i + 2] = torch.stack([nrmr1,
+                                            torch.where(conv1, -one, nrmr2)])
+    return _PState(i_next, status, x2, r2, p, v, rho, alpha, omega, nrmr2,
+                   st.hist, st.rw, st.nrmr0)
+
+
+def precond_core(matvec, msolve, dot, x0, b, tol: float, maxit: int):
+    """Preconditioned BiCGSTAB loop (reference gpu_pbicgstab,
+    pbicgstab.cu:45-154), generic over ``matvec``/``msolve``/``dot``.
+    Returns ``(x, status, iters, nrmr, nrmr0, hist)`` as device tensors.
+
+    The host polls ``status`` and ``i`` once per iteration; that read waits
+    for the iteration to finish, so the device idles while the host queues
+    the next one."""
+    c = loop_constants(b.dtype, b.device, tol)
+    st = precond_init(matvec, dot, x0, b, maxit, c)
+    status, i = _RUNNING, 0
+    while i < maxit and status == _RUNNING:
+        st = precond_step(matvec, msolve, dot, st, i, c)
+        status, i = torch.stack([st.status, st.i]).tolist()
+    return st.x, st.status, st.i, st.nrmr, st.nrmr0, st.hist
+
+
+# ---------------------------------------------------------------------------
+# Host-facing wrappers
+# ---------------------------------------------------------------------------
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to cuda_mat_tpu_torch"
+                               f" yet (ROADMAP {item})")
+
+
+def _check_config(config: SolverConfig) -> None:
+    if config.precond != "ilu0_neumann":
+        raise _not_ported(f"precond={config.precond!r}",
+                          "A2 (none, jacobi, ilu0)")
+    if not config.neumann_const_factors:
+        raise _not_ported("neumann_const_factors=False", "A6 / B3")
+    if config.reorder not in (None, "none"):
+        raise _not_ported(f"reorder={config.reorder!r}", "A8")
+    if config.fused_dots:
+        raise _not_ported("fused_dots", "A9 / B6")
+    if config.fuse_blas1:
+        raise _not_ported("fuse_blas1", "A9 / B5")
+    if not config.check_halves:
+        raise _not_ported("check_halves=False", "A9")
+    if config.debug:
+        raise _not_ported("debug", "A10")
+    if config.dtype not in _DTYPES:
+        raise ValueError(f"unknown dtype {config.dtype!r}")
+
+
+def _as_op(a, dtype: torch.dtype, device) -> ConstStencilOperator:
+    """Prove that ``a`` is a constant-coefficient grid stencil and build its
+    matrix-free operator (the JAX ``_as_op`` stencil branch)."""
+    if not isinstance(a, CSRMatrix):
+        raise TypeError(f"expected a CSRMatrix, got {type(a).__name__}")
+    if a.n != a.m:
+        raise ValueError(
+            f"square matrix is expected, got {a.n}x{a.m}")  # cf. example.cpp:257-260
+    dia = a.to_dia(max_diags=16)
+    if detect_const_stencil(dia) is None:
+        raise _not_ported("a matrix that is not a constant-coefficient grid"
+                          " stencil", "A6 (DIA/B3) and A2 (CSR)")
+    return ConstStencilOperator.from_dia(dia, dtype=dtype, device=device)
+
+
+def _build_setup(a, op: ConstStencilOperator, dt: torch.dtype,
+                 config: SolverConfig):
+    """Re-plan the layout for the fused series stencils, then build the
+    Neumann-ILU preconditioner from host factors (the reference's setup
+    phase: analysis + factorization, pbicgstab.cu:335-363).  Returns
+    ``(op, pre)``."""
+    plan = plan_const_neumann_layout(op.terms, config.neumann_terms,
+                                     op.c_grid, op.stride)
+    if plan is not None and (plan[0] > op.sub or op.block > plan[1]):
+        # widen the halo sub-block to the polynomials' offsets and cap the
+        # block as the JAX package does; a layout that cannot be built
+        # keeps the first one, and the sequential series applies
+        try:
+            op = ConstStencilOperator.from_dia(
+                a.to_dia(max_diags=16), dtype=dt, device=op.device,
+                min_sub=plan[0], block_target=plan[1])
+        except ValueError:
+            pass
+    pre = NeumannILUPreconditioner.from_csr(
+        a, terms=config.neumann_terms, pad_like=op,
+        const_factors=config.neumann_const_factors,
+        milu_omega=config.milu_omega)
+    return op, pre
+
+
+def host_matvec_f64(a: CSRMatrix, x) -> np.ndarray:
+    """``A x`` in float64 on the host (bincount over the CSR entries); used
+    by the true-residual report and iterative refinement."""
+    x64 = np.asarray(x, np.float64)
+    rows = np.repeat(np.arange(a.n), a.row_lengths)
+    return np.bincount(rows, weights=np.asarray(a.data, np.float64)
+                       * x64[a.indices], minlength=a.n)
+
+
+def _attach_true_residual(res: SolveResult, a, b,
+                          config: SolverConfig) -> SolveResult:
+    if config.true_residual:
+        res.residual_true = float(np.linalg.norm(
+            np.asarray(b, np.float64) - host_matvec_f64(a, res.x)))
+    return res
+
+
+def _check_shapes(op, b):
+    b = np.asarray(b)
+    if b.ndim != 1 or b.shape[0] != op.n:
+        raise ValueError(
+            f"b must be a vector of length n={op.n}, got shape {b.shape}"
+        )  # cf. example.cpp:320-328
+
+
+class PreparedSolver:
+    """Operator + preconditioner built once on one device; :meth:`solve`
+    runs any number of right-hand sides through them (the reference's
+    setup/solve split, pbicgstab.cu:335-363 vs :366)."""
+
+    def __init__(self, a, op, pre, config: SolverConfig, dt_setup: float):
+        self.a = a
+        self.op = op
+        self.pre = pre
+        self._config = config
+        self.dt_setup = dt_setup
+
+    @property
+    def n(self) -> int:
+        return self.op.n
+
+    @property
+    def device(self) -> torch.device:
+        return self.op.device
+
+    def solve(self, b, x0: Optional[np.ndarray] = None) -> SolveResult:
+        """Solve ``A x = b``; ``x0`` defaults to all-ones (reference
+        pbicgstab.cu:306-308)."""
+        cfg = self._config
+        _check_shapes(self.op, b)
+        bd = self.op.pad_vec(np.asarray(b))
+        x0d = self.op.pad_vec(np.ones(self.op.n) if x0 is None
+                              else np.asarray(x0))
+        # dtAlg excludes H2D transfers (reference pbicgstab.h:108-109)
+        device_sync(self.device)
+        t1 = time.perf_counter()
+        x, status, iters, nrmr, nrmr0, hist = precond_core(
+            self.op.matvec, self.pre.msolve, torch.dot, x0d, bd, cfg.tol,
+            cfg.maxit)
+        device_sync(self.device)
+        t2 = time.perf_counter()
+        status = int(status)
+        if status == _RUNNING:
+            status = SolverStatus.MAXIT
+        res = SolveResult(
+            x=self.op.unpad_vec(x).cpu().numpy(), status=SolverStatus(status),
+            iters=int(iters), residual=float(nrmr), residual0=float(nrmr0),
+            dt_alg=t2 - t1, dt_setup=self.dt_setup,
+            residual_history=hist.cpu().numpy())
+        return _attach_true_residual(res, self.a, b, cfg)
+
+
+def make_solver(a, config: SolverConfig = DEFAULT_CONFIG,
+                device="cuda") -> PreparedSolver:
+    """Build the operator and preconditioner once on ``device`` (a
+    ``torch.device`` or its name; CPU runs the kernels' plain twins).  Only
+    the ``ilu0_neumann`` constant-stencil path is ported; other
+    configurations raise NotImplementedError naming their ROADMAP item."""
+    t0 = time.perf_counter()
+    _check_config(config)
+    dt = _DTYPES[config.dtype]
+    op = _as_op(a, dt, torch.device(device))
+    op, pre = _build_setup(a, op, dt, config)
+    device_sync(op.device)
+    return PreparedSolver(a, op, pre, config, time.perf_counter() - t0)
+
+
+def solve(a, b, config: SolverConfig = DEFAULT_CONFIG,
+          x0: Optional[np.ndarray] = None, device="cuda") -> SolveResult:
+    """One-shot convenience over :func:`make_solver`."""
+    return make_solver(a, config, device=device).solve(b, x0=x0)

@@ -1,0 +1,115 @@
+"""Dispatch of the kernel front ends, and the kernels themselves on a card.
+
+On the CPU a front end runs its plain twin and never counts a launch.  Any
+other tensor goes to the kernel or raises: a failed build is never hidden
+by a fallback.  The ``gpu`` tests compare each CUDA kernel with its twin
+bit for bit (the kernels round every product and sum on its own, as the
+twins do) and skip without a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import cuda_mat_tpu_torch.models.problems as tprob
+from cuda_mat_tpu_torch.ops import _kernels
+from cuda_mat_tpu_torch.ops import stencil as tst
+from cuda_mat_tpu_torch.precond.preconditioners import NeumannILUPreconditioner
+
+torch.set_num_threads(1)
+
+
+def _setup(r=64, c=64, k=4, dtype=torch.float64, device="cpu"):
+    a = tprob.grid_laplacian(r, c)
+    d = a.to_dia(max_diags=16)
+    op0 = tst.ConstStencilOperator.from_dia(d, dtype=dtype)
+    plan = tst.plan_const_neumann_layout(op0.terms, k, op0.c_grid, op0.stride)
+    op = tst.ConstStencilOperator.from_dia(d, dtype=dtype, device=device,
+                                           min_sub=plan[0],
+                                           block_target=plan[1])
+    pre = NeumannILUPreconditioner.from_csr(a, terms=k, pad_like=op,
+                                            milu_omega=0.96)
+    return a, op, pre
+
+
+def test_cpu_tensors_run_the_twins_and_count_nothing():
+    a, op, pre = _setup()
+    assert pre.fused == "kernel"
+    tst.reset_launch_counts()
+    x = op.pad_vec(np.random.default_rng(0).standard_normal(a.n))
+    y = pre.msolve(op.matvec(x))
+    assert torch.equal(y, tst.const_series_msolve_padded_plain(
+        tst.const_stencil_spmv_padded_plain(
+            x, op.gapmask, op.strided_terms, op.np_true, op.block, op.sub),
+        pre.inv_d, pre.gap_ext, pre.nl.strided_terms, pre.nu.strided_terms,
+        op.np_true, op.block, op.sub))
+    assert tst.const_stencil_spmv_padded.launches == 0
+    assert tst.const_series_msolve_padded.launches == 0
+
+
+def test_missing_build_raises_and_never_falls_back(monkeypatch):
+    """A non-CPU tensor (a meta tensor stands in for a CUDA one here) takes
+    the kernel path; when the kernel library cannot be built the call
+    raises, the twin is not run and no launch is counted."""
+    _, op, pre = _setup()
+
+    def no_build():
+        raise RuntimeError("kernel build failed")
+
+    def twin_called(*a, **k):
+        raise AssertionError("fell back to the plain twin")
+
+    monkeypatch.setattr(_kernels, "library", no_build)
+    monkeypatch.setattr(tst, "const_stencil_spmv_padded_plain", twin_called)
+    monkeypatch.setattr(tst, "const_series_msolve_padded_plain", twin_called)
+    tst.reset_launch_counts()
+    meta = torch.empty(op.npad + 2 * op.block, dtype=torch.float64,
+                       device="meta")
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tst.const_stencil_spmv_padded(meta, op.gapmask.to("meta"),
+                                      op.strided_terms, op.np_true, op.block,
+                                      op.sub)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tst.const_series_msolve_padded(
+            meta, meta, pre.gap_ext.to("meta"), pre.nl.strided_terms,
+            pre.nu.strided_terms, op.np_true, op.block, op.sub)
+    assert tst.const_stencil_spmv_padded.launches == 0
+    assert tst.const_series_msolve_padded.launches == 0
+
+
+def test_msolve_fit_check():
+    """The fused kernel takes a layout only while P_l's reads over the u
+    tile stay inside the pad block and the tile fits shared memory."""
+    _, op, pre = _setup()
+    tl, tu = pre.nl.strided_terms, pre.nu.strided_terms
+    assert _kernels.msolve_fits(op.block, tl, tu, 8)
+    far = tu + ((op.block, 1.0),)
+    assert not _kernels.msolve_fits(op.block, tl, far, 8)
+    assert not _kernels.msolve_fits(op.block, tl, tu + ((40000, 1.0),), 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_equal_twins_on_card(dtype):
+    a, op, pre = _setup(100, 100, 4, dtype, "cuda")
+    assert pre.fused == "kernel"
+    x = op.pad_vec(np.random.default_rng(1).standard_normal(a.n))
+    tst.reset_launch_counts()
+    # a NaN block left in the caching allocator: an output element the
+    # kernel did not write would show as NaN
+    torch.full_like(x, float("nan"))
+    y = op.matvec(x)
+    torch.full_like(x, float("nan"))
+    z = pre.msolve(y)
+    torch.cuda.synchronize()
+    assert tst.const_stencil_spmv_padded.launches == 1
+    assert tst.const_series_msolve_padded.launches == 1
+    y_plain = tst.const_stencil_spmv_padded_plain(
+        x, op.gapmask, op.strided_terms, op.np_true, op.block, op.sub)
+    z_plain = tst.const_series_msolve_padded_plain(
+        y, pre.inv_d, pre.gap_ext, pre.nl.strided_terms,
+        pre.nu.strided_terms, op.np_true, op.block, op.sub)
+    assert torch.equal(y, y_plain)
+    assert torch.equal(z, z_plain)
