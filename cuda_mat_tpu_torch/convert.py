@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from cuda_mat_tpu_torch.ops.banded_trisolve import BandedTriSolver
 from cuda_mat_tpu_torch.ops.stencil import ConstStencilOperator
 from cuda_mat_tpu_torch.precond.preconditioners import NeumannILUPreconditioner
 
@@ -59,3 +60,16 @@ def preconditioner_from_numpy(fields: dict, op: ConstStencilOperator,
         int(fields["terms"]), fused=fields["fused"],
         gap_ext=None if gap_ext is None
         else _tensor(gap_ext, op.vec_dtype, device))
+
+
+def banded_trisolver_from_numpy(fields: dict, device) -> BandedTriSolver:
+    """``fields``: the JAX ``PallasBandedTriSolver``'s state — ``wt_lo``,
+    ``wct_lo``, ``wt_up``, ``wct_up`` (numpy, (nb, B, B)), ``n``,
+    ``block`` and ``unroll``.  The arrays keep their dtype and layout.  Its
+    ``fused`` field has no counterpart: both of its values compute the same
+    two sweeps, which is what the port's msolve runs."""
+    arrays = [torch.as_tensor(np.array(fields[k])).to(device)
+              for k in ("wt_lo", "wct_lo", "wt_up", "wct_up")]
+    return BandedTriSolver(*arrays, n=int(fields["n"]),
+                           block=int(fields["block"]),
+                           unroll=int(fields["unroll"]))

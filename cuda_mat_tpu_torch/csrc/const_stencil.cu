@@ -1,6 +1,6 @@
 // Hopper (sm_90a) kernels of the gap-strided constant-stencil solve path.
 //
-// Layout (shared with the JAX package, cuda_mat_tpu/ops/pallas_stencil.py):
+// Layout (shared with the JAX package, cuda_mat_tpu.ops.pallas_stencil):
 // a vector of the R x C grid is stored gap-strided, each grid row padded to
 // stride S >= C with zero gap cells, then block-halo padded: one zero block
 // of `block` elements on each side and a zero tail [np_true, npad) after the

@@ -38,3 +38,17 @@ class COOMatrix:
         order = np.lexsort((self.cols, self.rows))
         return COOMatrix(self.n, self.m, self.rows[order], self.cols[order],
                          self.data[order])
+
+    def symmetrized(self, kind: str = "symmetric") -> "COOMatrix":
+        """Mirror off-diagonal entries for MM symmetric/hermitian/skew files
+        (reference mmio_wrapper.h:172-230): every stored strictly
+        off-diagonal entry (i, j) gains a mirror (j, i); skew-symmetric
+        mirrors are negated (reference mmio_wrapper.h:205-206)."""
+        off = self.rows != self.cols
+        mdata = self.data[off]
+        if kind == "skew-symmetric":
+            mdata = -mdata
+        return COOMatrix(self.n, self.m,
+                         np.concatenate([self.rows, self.cols[off]]),
+                         np.concatenate([self.cols, self.rows[off]]),
+                         np.concatenate([self.data, mdata]))

@@ -85,6 +85,14 @@ class CSRMatrix:
     def verify(self) -> None:
         verify_pattern(self.n, self.nnz, self.indptr, self.indices, m=self.m)
 
+    def diagonal(self) -> np.ndarray:
+        """Dense main diagonal (zeros where not stored)."""
+        d = np.zeros(min(self.n, self.m), dtype=self.data.dtype)
+        rows = np.repeat(np.arange(self.n), self.row_lengths)
+        on = self.indices == rows
+        d[rows[on]] = self.data[on]
+        return d
+
     def matvec(self, x: np.ndarray) -> np.ndarray:
         """Host (numpy) SpMV — the oracle for device kernels."""
         y = np.zeros(self.n, dtype=np.result_type(self.data, x))

@@ -1,13 +1,14 @@
 """Build, load and launch the hand-written Hopper kernels
-(``cuda_mat_tpu_torch/csrc/const_stencil.cu``).
+(``cuda_mat_tpu_torch/csrc/*.cu``).
 
-The source is compiled with nvcc for ``sm_90a`` into a shared library with a
-plain C interface at first use (into ``cuda_mat_tpu_torch/build/``, see
+Each source is compiled with nvcc for ``sm_90a`` into a shared library with
+a plain C interface at first use (into ``cuda_mat_tpu_torch/build/``, see
 :mod:`~cuda_mat_tpu_torch.utils.build`) and bound through ctypes.  Nothing is
 built or imported from CUDA when this module is imported, so CPU-only
 installs import it freely.  Callers go through the front ends in
-:mod:`cuda_mat_tpu_torch.ops.stencil`, which send CPU tensors to the plain
-PyTorch twins and CUDA tensors here.
+:mod:`cuda_mat_tpu_torch.ops.stencil` and
+:mod:`cuda_mat_tpu_torch.ops.banded_trisolve`, which send CPU tensors to the
+plain PyTorch twins and CUDA tensors here.
 """
 
 from __future__ import annotations
@@ -15,15 +16,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from cuda_mat_tpu_torch.utils.build import build_library
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "const_stencil.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -31,35 +32,53 @@ MAX_TERMS = 64                # kMaxTerms of the kernels' by-value term struct
 SMEM_LIMIT = 232448           # dynamic shared memory one block may use on H100
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
-_lib: Optional[ctypes.CDLL] = None
-build_seconds = 0.0   # time the last build in this process took (0 = reused)
+_libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}   # source -> seconds its build took
+                                       # in this process (0 = reused)
 
 
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library.  Raises RuntimeError
-    when nvcc is missing or the build fails — there is no fallback."""
-    global _lib, build_seconds
-    if _lib is None:
+def _load(source: str, stem: str, signatures) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library, and declare its
+    launchers' ``signatures`` (name -> argtypes; all return an int error
+    code).  Raises RuntimeError when nvcc is missing or the build fails —
+    there is no fallback."""
+    if source not in _libs:
         from torch.utils.cpp_extension import CUDA_HOME
 
         nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
         if nvcc is None or not os.path.exists(nvcc):
             raise RuntimeError("nvcc not found: the CUDA kernels cannot be"
                                " built (set CUDA_HOME)")
-        path, build_seconds = build_library([nvcc] + NVCC_FLAGS, SOURCE,
-                                            "libcmt_kernels")
+        path, build_seconds[source] = build_library(
+            [nvcc] + NVCC_FLAGS, os.path.join(CSRC, source), stem)
         lib = ctypes.CDLL(path)
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cmt_const_stencil_spmv.restype = i
-        lib.cmt_const_stencil_spmv.argtypes = [i, p, p, p, p, p, i, ll, ll,
-                                               ll, ll, p]
-        lib.cmt_const_series_msolve.restype = i
-        lib.cmt_const_series_msolve.argtypes = [i, p, p, p, p, p, p, i, p, p,
-                                                i, ll, ll, ll, ll, i, i, i, p]
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
         lib.cmt_cuda_error_string.restype = ctypes.c_char_p
-        lib.cmt_cuda_error_string.argtypes = [i]
-        _lib = lib
-    return _lib
+        lib.cmt_cuda_error_string.argtypes = [ctypes.c_int]
+        _libs[source] = lib
+    return _libs[source]
+
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def library() -> ctypes.CDLL:
+    """The stencil kernels B1/B2 (``csrc/const_stencil.cu``)."""
+    return _load("const_stencil.cu", "libcmt_kernels", {
+        "cmt_const_stencil_spmv": [_I, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
+                                   _LL, _P],
+        "cmt_const_series_msolve": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                                    _I, _LL, _LL, _LL, _LL, _I, _I, _I, _P]})
+
+
+def trisolve_library() -> ctypes.CDLL:
+    """The banded triangular sweep B4b, which B4a runs twice
+    (``csrc/banded_trisolve.cu``)."""
+    return _load("banded_trisolve.cu", "libcmt_trisolve", {
+        "cmt_banded_sweep": [_I, _P, _P, _P, _P, _LL, _I, _I, _P]})
 
 
 @functools.lru_cache(maxsize=64)
@@ -146,4 +165,19 @@ def const_series_msolve(x_pad: torch.Tensor, inv_d_pad: torch.Tensor,
             (gapmask_ext.shape[0] - block) // 2, halo, msolve_tile(block),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "const_series_msolve")
+    return y
+
+
+def banded_sweep(f: torch.Tensor, wt: torch.Tensor, wct: torch.Tensor,
+                 forward: bool) -> torch.Tensor:
+    """Launch kernel B4b on ``f``'s device and current stream."""
+    lib = trisolve_library()
+    _check_cuda(f, wt, wct)
+    y = torch.empty_like(f)
+    with torch.cuda.device(f.device):
+        rc = lib.cmt_banded_sweep(
+            _DTYPE_CODE[f.dtype], f.data_ptr(), wt.data_ptr(), wct.data_ptr(),
+            y.data_ptr(), wt.shape[0], wt.shape[1], int(forward),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, rc, "banded_sweep")
     return y

@@ -1,6 +1,6 @@
 """Preconditioned BiCGSTAB over padded stencil vectors, in PyTorch
-(counterpart of :mod:`cuda_mat_tpu.solvers.bicgstab`, its
-``ilu0_neumann`` stencil path).
+(counterpart of :mod:`cuda_mat_tpu.solvers.bicgstab`, its stencil path with
+the ``ilu0_neumann`` and exact ``ilu0`` preconditioners).
 
 The loop keeps the JAX package's update order exactly: the flat,
 select-based body, the first-half convergence exit that does not bump the
@@ -23,7 +23,8 @@ from cuda_mat_tpu_torch.formats.csr import CSRMatrix
 from cuda_mat_tpu_torch.ops.stencil import (ConstStencilOperator,
                                             detect_const_stencil,
                                             plan_const_neumann_layout)
-from cuda_mat_tpu_torch.precond.preconditioners import NeumannILUPreconditioner
+from cuda_mat_tpu_torch.precond.preconditioners import (
+    ILU0Preconditioner, NeumannILUPreconditioner, PaddedPreconditioner)
 from cuda_mat_tpu_torch.solvers.result import SolveResult, SolverStatus
 from cuda_mat_tpu_torch.utils.timing import device_sync
 
@@ -159,10 +160,9 @@ def _not_ported(what: str, item: str):
 
 
 def _check_config(config: SolverConfig) -> None:
-    if config.precond != "ilu0_neumann":
-        raise _not_ported(f"precond={config.precond!r}",
-                          "A2 (none, jacobi, ilu0)")
-    if not config.neumann_const_factors:
+    if config.precond not in ("ilu0", "ilu0_neumann"):
+        raise _not_ported(f"precond={config.precond!r}", "A2 (none, jacobi)")
+    if config.precond == "ilu0_neumann" and not config.neumann_const_factors:
         raise _not_ported("neumann_const_factors=False", "A6 / B3")
     if config.reorder not in (None, "none"):
         raise _not_ported(f"reorder={config.reorder!r}", "A8")
@@ -195,10 +195,17 @@ def _as_op(a, dtype: torch.dtype, device) -> ConstStencilOperator:
 
 def _build_setup(a, op: ConstStencilOperator, dt: torch.dtype,
                  config: SolverConfig):
-    """Re-plan the layout for the fused series stencils, then build the
-    Neumann-ILU preconditioner from host factors (the reference's setup
+    """Build the preconditioner from host factors (the reference's setup
     phase: analysis + factorization, pbicgstab.cu:335-363).  Returns
-    ``(op, pre)``."""
+    ``(op, pre)``.
+
+    Exact ILU(0) keeps the operator's layout: its triangular solves work on
+    true-n vectors, adapted at the msolve boundary.  The Neumann series
+    re-plans the layout for its fused series stencils first."""
+    if config.precond == "ilu0":
+        return op, PaddedPreconditioner(ILU0Preconditioner.from_csr(
+            a, block=config.trisolve_block, dtype=dt, device=op.device,
+            milu_omega=config.milu_omega), op)
     plan = plan_const_neumann_layout(op.terms, config.neumann_terms,
                                      op.c_grid, op.stride)
     if plan is not None and (plan[0] > op.sub or op.block > plan[1]):
@@ -294,8 +301,9 @@ def make_solver(a, config: SolverConfig = DEFAULT_CONFIG,
                 device="cuda") -> PreparedSolver:
     """Build the operator and preconditioner once on ``device`` (a
     ``torch.device`` or its name; CPU runs the kernels' plain twins).  Only
-    the ``ilu0_neumann`` constant-stencil path is ported; other
-    configurations raise NotImplementedError naming their ROADMAP item."""
+    constant-stencil matrices with the ``ilu0`` or ``ilu0_neumann``
+    preconditioner are ported; other configurations raise
+    NotImplementedError naming their ROADMAP item."""
     t0 = time.perf_counter()
     _check_config(config)
     dt = _DTYPES[config.dtype]
@@ -309,3 +317,12 @@ def solve(a, b, config: SolverConfig = DEFAULT_CONFIG,
           x0: Optional[np.ndarray] = None, device="cuda") -> SolveResult:
     """One-shot convenience over :func:`make_solver`."""
     return make_solver(a, config, device=device).solve(b, x0=x0)
+
+
+def bicgstab_lu_precond(a, b, config: SolverConfig = DEFAULT_CONFIG,
+                        device="cuda") -> SolveResult:
+    """ILU(0)-preconditioned BiCGSTAB, x0 = all-ones (reference
+    bicgstab_lu_precond, pbicgstab.cu:157-409; x0 at :306-308).  Unlike the
+    reference — which always returns true (:408) — the result carries real
+    convergence status."""
+    return solve(a, b, config.replace(precond="ilu0"), device=device)

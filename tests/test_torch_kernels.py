@@ -3,8 +3,10 @@
 On the CPU a front end runs its plain twin and never counts a launch.  Any
 other tensor goes to the kernel or raises: a failed build is never hidden
 by a fallback.  The ``gpu`` tests compare each CUDA kernel with its twin
-bit for bit (the kernels round every product and sum on its own, as the
-twins do) and skip without a card.
+and skip without a card: the stencil kernels B1/B2 bit for bit (they round
+every product and sum on its own, as the twins do), the banded trisolve
+kernels B4a/B4b to 1e-12 (f64) and 1e-5 (f32) of max|twin| (they sum in
+another order than the twin's torch.matmul).
 """
 
 import numpy as np
@@ -13,8 +15,10 @@ import torch
 
 import cuda_mat_tpu_torch.models.problems as tprob
 from cuda_mat_tpu_torch.ops import _kernels
+from cuda_mat_tpu_torch.ops import banded_trisolve as tbt
 from cuda_mat_tpu_torch.ops import stencil as tst
-from cuda_mat_tpu_torch.precond.preconditioners import NeumannILUPreconditioner
+from cuda_mat_tpu_torch.precond.preconditioners import (ILU0Preconditioner,
+                                                        NeumannILUPreconditioner)
 
 torch.set_num_threads(1)
 
@@ -77,6 +81,49 @@ def test_missing_build_raises_and_never_falls_back(monkeypatch):
     assert tst.const_series_msolve_padded.launches == 0
 
 
+def _tri(side=12, block=16, dtype=torch.float64, device="cpu"):
+    a = tprob.banded_laplacian(side)
+    return a, ILU0Preconditioner.from_csr(a, block=block, dtype=dtype,
+                                          device=device).tri
+
+
+def test_trisolve_cpu_tensors_run_the_twins_and_count_nothing():
+    a, tri = _tri()
+    tbt.reset_launch_counts()
+    f = torch.from_numpy(np.random.default_rng(0).standard_normal(a.n))
+    fp = tri._pad(f)
+    want = tbt.fused_msolve_padded_plain(fp, tri.wt_lo, tri.wct_lo,
+                                         tri.wt_up, tri.wct_up)[:a.n]
+    assert torch.equal(tri.msolve(f), want)
+    assert torch.equal(tri.solve_lower(f), tbt.banded_sweep_padded_plain(
+        fp, tri.wt_lo, tri.wct_lo, True)[:a.n])
+    assert tbt.fused_msolve_padded.launches == 0
+    assert tbt.banded_sweep_padded.launches == 0
+
+
+def test_trisolve_missing_build_raises_and_never_falls_back(monkeypatch):
+    _, tri = _tri()
+
+    def no_build():
+        raise RuntimeError("kernel build failed")
+
+    def twin_called(*a, **k):
+        raise AssertionError("fell back to the plain twin")
+
+    monkeypatch.setattr(_kernels, "trisolve_library", no_build)
+    monkeypatch.setattr(tbt, "banded_sweep_padded_plain", twin_called)
+    monkeypatch.setattr(tbt, "fused_msolve_padded_plain", twin_called)
+    tbt.reset_launch_counts()
+    meta = torch.empty(tri.npad, dtype=torch.float64, device="meta")
+    w = tri.wt_lo.to("meta")
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tbt.banded_sweep_padded(meta, w, w, True)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tbt.fused_msolve_padded(meta, w, w, w, w)
+    assert tbt.fused_msolve_padded.launches == 0
+    assert tbt.banded_sweep_padded.launches == 0
+
+
 def test_msolve_fit_check():
     """The fused kernel takes a layout only while P_l's reads over the u
     tile stay inside the pad block and the tile fits shared memory."""
@@ -113,3 +160,38 @@ def test_kernels_equal_twins_on_card(dtype):
         pre.nu.strided_terms, op.np_true, op.block, op.sub)
     assert torch.equal(y, y_plain)
     assert torch.equal(z, z_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("side,block", [(30, 32), (30, 64), (100, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trisolve_kernels_match_twins_on_card(dtype, side, block):
+    a, tri = _tri(side, block, dtype, "cuda")
+    f = tri._pad(torch.from_numpy(
+        np.random.default_rng(1).standard_normal(a.n)).to("cuda"))
+    bound = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
+    tbt.reset_launch_counts()
+    cases = [
+        (lambda: tbt.banded_sweep_padded(f, tri.wt_lo, tri.wct_lo, True),
+         lambda: tbt.banded_sweep_padded_plain(f, tri.wt_lo, tri.wct_lo,
+                                               True)),
+        (lambda: tbt.banded_sweep_padded(f, tri.wt_up, tri.wct_up, False),
+         lambda: tbt.banded_sweep_padded_plain(f, tri.wt_up, tri.wct_up,
+                                               False)),
+        (lambda: tbt.fused_msolve_padded(f, tri.wt_lo, tri.wct_lo, tri.wt_up,
+                                         tri.wct_up),
+         lambda: tbt.fused_msolve_padded_plain(f, tri.wt_lo, tri.wct_lo,
+                                               tri.wt_up, tri.wct_up))]
+    for kern, plain in cases:
+        torch.full_like(f, float("nan"))
+        yk = kern()
+        yp = plain()
+        torch.cuda.synchronize()
+        assert torch.isfinite(yk).all()
+        assert (yk - yp).abs().max() <= bound * yp.abs().max()
+        assert torch.count_nonzero(yk[a.n:]) == 0
+    # B4a runs B4b forward and backward: two sweeps of its own
+    assert tbt.banded_sweep_padded.launches == 4
+    assert tbt.fused_msolve_padded.launches == 1
