@@ -28,13 +28,26 @@ script exits non-zero:
    (bicgstab_lu_precond) on data/mat900.mtx and data/mat10000.mtx on the
    card and on the CPU, in f64 and f32, against the goldens; refinement of
    mat10000 through an f32 ILU(0) solver; the 1M-row
-   grid_laplacian(10000, 100) solved once in f64 and twice in f32.
+   grid_laplacian(10000, 100) solved once in f64 and twice in f32;
+7. banded DIA parity: B3 against its twin, bitwise, in f32 and f64, with
+   both pad blocks checked zero, at mat3's layout, at the 10M-row grid's
+   DIA and restrided-factor layouts and at the bench's 10M-row
+   banded_laplacian_dia(3163) layout; B3's time there beside its twin,
+   its bound and torch.mv of the same matrix in sparse CSR; A·x and M⁻¹x of
+   the two 10M configurations below, equal element for element;
+8. main path 3, banded DIA: the reference's plain and split entry points
+   (bicgstab, bicgstab_split) and Jacobi on mat3 and mat10000, card
+   against CPU and the goldens, in f64; then grid_laplacian(100000, 100)
+   with exact-factor Neumann-ILU k=3, f32, tol 1e-4, as format="pallas_dia"
+   (A and the factors on B3) and on the stencil layout (A on B1, the
+   restrided factors on B3), each solved twice.
 
 The line before last is a JSON object with each kernel's launches, error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -50,6 +63,7 @@ import cuda_mat_tpu_torch as ct
 from cuda_mat_tpu_torch.native import loader as native
 from cuda_mat_tpu_torch.ops import _kernels
 from cuda_mat_tpu_torch.ops import banded_trisolve as bt
+from cuda_mat_tpu_torch.ops import dia_spmv as ds
 from cuda_mat_tpu_torch.ops import stencil as st
 from cuda_mat_tpu_torch.precond import preconditioners as pre_mod
 from cuda_mat_tpu_torch.solvers import bicgstab as bs
@@ -75,6 +89,16 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 STENCIL_SRC = "cuda_mat_tpu_torch/csrc/const_stencil.cu"
 TRISOLVE_SRC = "cuda_mat_tpu_torch/csrc/banded_trisolve.cu"
+DIA_SRC = "cuda_mat_tpu_torch/csrc/dia_spmv.cu"
+BENCH_SIDE = 3163             # banded_laplacian_dia(3163): bench.py's 10M SpMV
+# exact-factor Neumann k=3, f32, tol 1e-4, b = ones: the port's CPU solves
+# of grid_laplacian(R, 100) at 50k-1M rows take 95-110 iterations in both
+# configurations (tests/test_torch_neumann_scan.py), flat in n; TPU runs at
+# 10M rows (another RHS protocol) took 82 and 79.
+NEUMANN_ITERS = (60, 300)
+HFORM_GOLDEN = {"mat10000": 115, "mat10000_split": 117}   # tests/goldens
+HFORM_SLACK = 6               # the goldens' h-form slack, also card vs CPU
+DEMO_X = [7 / 6, 17 / 3, -23 / 6]
 KERNELS = {
     "const_stencil_spmv": (STENCIL_SRC,
                            "cuda_mat_tpu/ops/pallas_stencil.py:306"),
@@ -83,6 +107,7 @@ KERNELS = {
     "banded_fused_msolve": (TRISOLVE_SRC,
                             "cuda_mat_tpu/ops/pallas_trisolve.py:149"),
     "banded_sweep": (TRISOLVE_SRC, "cuda_mat_tpu/ops/pallas_trisolve.py:73"),
+    "dia_spmv": (DIA_SRC, "cuda_mat_tpu/ops/pallas_spmv.py:75"),
 }
 
 
@@ -362,12 +387,14 @@ def counts():
     return {"const_stencil_spmv": st.const_stencil_spmv_padded.launches,
             "const_series_msolve": st.const_series_msolve_padded.launches,
             "banded_fused_msolve": bt.fused_msolve_padded.launches,
-            "banded_sweep": bt.banded_sweep_padded.launches}
+            "banded_sweep": bt.banded_sweep_padded.launches,
+            "dia_spmv": ds.dia_spmv_block_padded.launches}
 
 
 def reset_counts():
     st.reset_launch_counts()
     bt.reset_launch_counts()
+    ds.reset_launch_counts()
 
 
 def check_counted(path, got, kernels):
@@ -442,6 +469,189 @@ def one_m_solve(ps, b, tag):
     return r
 
 
+def dia_parity(op, tag, stats, timed=False):
+    """B3 against its twin on ``op``'s layout, in f32 and f64, bitwise,
+    both pad blocks zero (the kernel's output is poisoned first);
+    ``timed``: also print the f32 kernel's time."""
+    for dtype in (torch.float32, torch.float64):
+        o = dataclasses.replace(op, data=op.data.to(dtype), vec_dtype=dtype)
+        x = o.pad_vec(np.random.default_rng(3).standard_normal(o.n))
+        args = (o.data, x, o.offsets, o.block, o.sub)
+        poison_allocator(x)
+        yk = ds.dia_spmv_block_padded(*args)
+        yp = ds.dia_spmv_block_padded_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(yk).all():
+            raise RuntimeError(f"{tag} dia_spmv: non-finite kernel output")
+        if torch.count_nonzero(yk[:o.block]) or torch.count_nonzero(
+                yk[o.block + o.npad:]):
+            raise RuntimeError(f"{tag} dia_spmv: pad blocks not zero")
+        err = float((yk - yp).abs().max())
+        line = (f"{tag} {str(dtype)[6:]} dia_spmv (n {o.n}, npad {o.npad},"
+                f" block {o.block}, sub {o.sub}, offsets {o.offsets}):"
+                f" max|kernel - twin| = {err!r}")
+        if timed and dtype == torch.float32:
+            ms = cuda_ms(lambda: ds.dia_spmv_block_padded(*args))
+            line += f", kernel {ms:.4f} ms"
+        print(line, flush=True)
+        stats["dia_spmv"]["max_abs_err"] = max(
+            stats["dia_spmv"]["max_abs_err"], err)
+        if err != 0.0:
+            raise RuntimeError(f"{tag} dia_spmv: kernel differs from its twin"
+                               f" (max abs {err!r}; bitwise required)")
+
+
+def same_operators(ps_dia, ps_st):
+    """The two 10M configurations apply the same A and the same M⁻¹ in
+    two layouts: each product and sum is the same in both, so A·x and
+    M⁻¹x agree element for element in true coordinates, and only the
+    dots (over vectors of other lengths and zero patterns) can part their
+    trajectories."""
+    x = np.random.default_rng(5).standard_normal(ps_dia.n)
+    for what, fn in (("A x", lambda ps: ps.op.matvec(ps.op.pad_vec(x))),
+                     ("M^-1 x", lambda ps: ps.pre.msolve(ps.op.pad_vec(x)))):
+        y_dia = ps_dia.op.unpad_vec(fn(ps_dia))
+        y_st = ps_st.op.unpad_vec(fn(ps_st))
+        diff = float((y_dia - y_st).abs().max())
+        print(f"10M {what}: pallas_dia layout against the restrided stencil"
+              f" layout, max|difference| = {diff!r}", flush=True)
+        if not torch.equal(y_dia, y_st):
+            raise RuntimeError(f"10M {what} differs between the two layouts")
+
+
+def dia_bench(stats, smi):
+    """B3 at the bench's 10M-row banded_laplacian_dia(3163) layout, block
+    32768, f32: parity, then kernel and twin times, the bound, the bench's
+    own byte model and torch.mv of the same matrix in sparse CSR."""
+    dia = ct.banded_laplacian_dia(BENCH_SIDE)
+    op = ds.PallasDIAOperator.from_dia(dia, dtype=torch.float32,
+                                       device=DEVICE)
+    dia_parity(op, "bench 10M layout", stats)
+    x = np.random.default_rng(4).standard_normal(op.n)
+    xk = op.pad_vec(x)
+    args = (op.data, xk, op.offsets, op.block, op.sub)
+    ms = cuda_ms(lambda: ds.dia_spmv_block_padded(*args))
+    pms = cuda_ms(lambda: ds.dia_spmv_block_padded_plain(*args))
+    stats["dia_spmv"].update(ms=ms, plain_ms=pms)
+    # the diagonals read once, x read once and y written once
+    item = xk.element_size()
+    stats["dia_spmv"].update(bound(
+        (op.data.numel() + 2 * xk.numel()) * item,
+        2 * len(op.offsets) * op.npad))
+    gbps = (5 * op.n + 2 * op.n) * 4 / (ms * 1e-3) / 1e9
+    print(f"bench 10M layout dia_spmv f32: kernel {ms:.4f} ms, twin"
+          f" {pms:.4f} ms, bound {stats['dia_spmv']['bound_ms']:.4f} ms"
+          f" ({stats['dia_spmv']['bound_by']}); bench byte model"
+          f" (5n + 2n)·4 B / t = {gbps:.1f} GB/s; {smi}", flush=True)
+    # the same matrix in CSR, rows in order, entries in ascending column
+    offs = np.asarray(dia.offsets, np.int64)
+    vals = dia.data.T
+    keep = vals != 0
+    cols = (np.arange(dia.n, dtype=np.int64)[:, None] + offs[None, :])[keep]
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+    a_t = torch_csr(indptr, cols, vals[keep], dia.n, torch.float32)
+    x_t = torch.from_numpy(x).to(torch.float32).to(DEVICE)
+    y_k = op.unpad_vec(ds.dia_spmv_block_padded(*args))
+    library_time(stats, "dia_spmv", lambda: torch.mv(a_t, x_t),
+                 "torch.mv(sparse CSR A, x)",
+                 lambda y: float((y - y_k).abs().max() / y_k.abs().max()))
+
+
+def check_card_cpu(line, r, rc, iters, slack):
+    """Card result ``r`` against the CPU's ``rc`` and a golden count."""
+    dx = float(np.linalg.norm(r.x - rc.x) / np.linalg.norm(rc.x))
+    line += (f" (golden {iters}); cpu {rc.status.name} {rc.iters} it,"
+             f" |x diff|/|x| = {dx!r}")
+    print(line, flush=True)
+    if not (r.converged and rc.converged and np.isfinite(r.x).all()
+            and abs(r.iters - iters) <= slack
+            and abs(r.iters - rc.iters) <= HFORM_SLACK and dx <= 1e-6):
+        raise RuntimeError(line + " — outside the window")
+
+
+def entry_solves():
+    """The reference's plain and split entry points and Jacobi, f64, card
+    against CPU (plain twins) and the goldens; each solve's own launches
+    show which kernel carried A."""
+    def load(name):
+        return ct.load_mm_sparse_matrix(os.path.join(ROOT, "data",
+                                                     f"{name}.mtx"))
+
+    mat3, vec3 = load("mat3"), ct.to_dense_vector(load("vec3"))
+    a0, d3 = load("mat3_A0"), ct.to_dense_vector(load("vec3_d"))
+    m = load("mat10000")
+    one = np.ones(m.n)
+    m0, dm = ct.split_form(m)
+    demo = ct.SolverConfig(maxit=200, tol=1e-5)
+    cfg = ct.SolverConfig(maxit=2000, tol=1e-6)
+    cases = [
+        ("bicgstab(mat3, vec3)", "dia_spmv", 3, 0,
+         lambda dev: ct.bicgstab(mat3, vec3, demo, device=dev)),
+        ("bicgstab_split(mat3_A0, vec3_d, ones, vec3)", "dia_spmv", 3, 0,
+         lambda dev: ct.bicgstab_split(a0, d3, np.ones(3), vec3,
+                                       demo.replace(maxit=2000),
+                                       device=dev)),
+        ("bicgstab(mat10000)", "const_stencil_spmv", HFORM_GOLDEN["mat10000"],
+         HFORM_SLACK, lambda dev: ct.bicgstab(m, one, cfg, device=dev)),
+        ("bicgstab(mat10000, format='pallas_dia')", "dia_spmv",
+         HFORM_GOLDEN["mat10000"], HFORM_SLACK,
+         lambda dev: ct.bicgstab(m, one, cfg, format="pallas_dia",
+                                 device=dev)),
+        ("bicgstab_split(*split_form(mat10000), ones, ones)",
+         "const_stencil_spmv", HFORM_GOLDEN["mat10000_split"], HFORM_SLACK,
+         lambda dev: ct.bicgstab_split(m0, dm, one, one, cfg, device=dev)),
+    ]
+    for what, kernel, iters, slack, run in cases:
+        c0 = counts()
+        r = run(DEVICE)
+        launched = counts()[kernel] - c0[kernel]
+        line = (f"{what}: card {r.status.name} {r.iters} it on {kernel}"
+                f" ({launched} launches), dtAlg {r.dt_alg * 1e3:.3f} ms")
+        if launched < 2 * r.iters + 1:
+            raise RuntimeError(line + f" — {kernel} did not carry A")
+        if iters == 3 and not np.allclose(r.x, DEMO_X, rtol=1e-9, atol=0):
+            raise RuntimeError(f"{line}: x = {r.x!r}, not {DEMO_X}")
+        check_card_cpu(line, r, run("cpu"), iters, slack)
+    jac = cfg.replace(precond="jacobi")
+    c0 = counts()["dia_spmv"]
+    r = ct.solve(m, one, jac, format="pallas_dia", device=DEVICE)
+    line = (f"solve(mat10000, precond='jacobi', format='pallas_dia'): card"
+            f" {r.status.name} {r.iters} it ({counts()['dia_spmv'] - c0} B3"
+            " launches)")
+    rc = ct.solve(m, one, jac, format="pallas_dia", device="cpu")
+    check_card_cpu(line, r, rc, rc.iters, HFORM_SLACK)
+
+
+def neumann_10m_solve(ps, b, tag):
+    """One 10M-row exact-factor Neumann solve, checked: CONVERGED in the
+    window, finite, and the launches of its configuration: per iteration 2
+    A-matvecs (B3 on DIA, B1 on the stencil) and 2 msolves of 2(k−1) = 4
+    factor matvecs on B3; B2 and B4 never."""
+    c0 = counts()
+    r = ps.solve(b)
+    got = {k: v - c0[k] for k, v in counts().items()}
+    it = r.iters
+    print(f"10M exact-factor Neumann {tag}: {r.status.name} {it} it, dtAlg"
+          f" {r.dt_alg * 1e3:.3f} ms ({r.dt_alg * 1e3 / max(it, 1):.4f}"
+          f" ms/iter), true relative residual"
+          f" {float(r.residual_true / np.linalg.norm(b))!r}, dt_setup"
+          f" {ps.dt_setup:.3f} s, launches {got}", flush=True)
+    if r.status != ct.SolverStatus.CONVERGED or not np.isfinite(r.x).all() \
+            or not NEUMANN_ITERS[0] <= it <= NEUMANN_ITERS[1]:
+        raise RuntimeError(f"10M {tag}: {r.status.name} in {it} iterations"
+                           f" (want CONVERGED in {NEUMANN_ITERS})")
+    if tag == "pallas_dia":
+        ok = got["dia_spmv"] >= 10 * it + 1 and got["const_stencil_spmv"] == 0
+    else:
+        ok = (got["const_stencil_spmv"] >= 2 * it + 1
+              and got["dia_spmv"] >= 8 * it)
+    if not ok or got["const_series_msolve"] or got["banded_fused_msolve"] \
+            or got["banded_sweep"]:
+        raise RuntimeError(f"10M {tag}: the launches do not show the"
+                           f" configuration's kernels ({got})")
+    return r
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -461,7 +671,7 @@ def main():
         with ThreadPoolExecutor() as pool:
             for fut in [pool.submit(f) for f in (
                     _kernels.library, _kernels.trisolve_library,
-                    native.library)]:
+                    _kernels.dia_library, native.library)]:
                 fut.result()
         print(f"built at once: kernels {_kernels.build_seconds}, native"
               f" parser/factorizer {native.build_seconds:.2f} s")
@@ -607,10 +817,60 @@ def main():
     check_counted("main path 2 (exact ILU(0))", path2,
                   ("const_stencil_spmv", "banded_fused_msolve",
                    "banded_sweep"))
+    del ps1m, ps1m64, tri
+
+    cfg_n = ct.SolverConfig(maxit=2000, tol=1e-4, dtype="float32",
+                            precond="ilu0_neumann", neumann_terms=3,
+                            neumann_const_factors=False)
+    with phase(timer, "banded DIA parity"):
+        mat3 = ct.load_mm_sparse_matrix(os.path.join(ROOT, "data",
+                                                     "mat3.mtx"))
+        dia_parity(ds.PallasDIAOperator.from_dia(
+            mat3.to_dia(max_diags=16), device=DEVICE), "mat3 layout", stats)
+        a = ct.grid_laplacian(*FLAGSHIP)
+        ps_dia = ct.make_solver(a, cfg_n, format="pallas_dia", device=dev)
+        ps_st = ct.make_solver(a, cfg_n, device=dev)
+        for tag, ps_n in (("pallas_dia", ps_dia), ("stencil", ps_st)):
+            print(f"10M {tag} setup (make_solver): {ps_n.dt_setup:.3f} s;"
+                  f" A: {type(ps_n.op).__name__} npad {ps_n.op.npad} block"
+                  f" {ps_n.op.block} sub {ps_n.op.sub}; factors: n"
+                  f" {ps_n.pre.nl.n} npad {ps_n.pre.nl.npad} block"
+                  f" {ps_n.pre.nl.block} offsets {ps_n.pre.nl.offsets} /"
+                  f" {ps_n.pre.nu.offsets}", flush=True)
+        same_operators(ps_dia, ps_st)
+        dia_parity(ps_dia.op, "10M grid DIA layout", stats, timed=True)
+        dia_parity(ps_dia.pre.nl, "10M DIA-factor layout (N_l)", stats,
+                   timed=True)
+        dia_parity(ps_st.pre.nl, "10M restrided-factor layout (N_l)", stats,
+                   timed=True)
+        dia_parity(ps_st.pre.nu, "10M restrided-factor layout (N_u)", stats)
+        dia_bench(stats, smi)
+
+    # ---- main path 3: banded DIA
+    reset_counts()
+    with phase(timer, "entry points (h-form, split, Jacobi)"):
+        entry_solves()
+    with phase(timer, "10M exact-factor Neumann solves"):
+        b = np.ones(a.n)
+        its = {}
+        for tag, ps_n in (("pallas_dia", ps_dia), ("stencil", ps_st)):
+            for _ in range(2):
+                r = neumann_10m_solve(ps_n, b, tag)
+            its[tag] = r.iters
+            print(f"10M {tag} (second solve): dt_setup {ps_n.dt_setup:.3f}"
+                  f" s, dtAlg {r.dt_alg * 1e3:.3f} ms,"
+                  f" {r.dt_alg * 1e3 / r.iters:.4f} ms/iter, {r.iters}"
+                  f" iterations, true residual {r.residual_true!r}",
+                  flush=True)
+        print(f"10M iterations side by side: pallas_dia {its['pallas_dia']},"
+              f" stencil + restrided factors {its['stencil']}", flush=True)
+    path3 = counts()
+    check_counted("main path 3 (banded DIA)", path3,
+                  ("dia_spmv", "const_stencil_spmv"))
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": path1[k] + path2[k], **stats[k]}
+         "launches": path1[k] + path2[k] + path3[k], **stats[k]}
         for k, (src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

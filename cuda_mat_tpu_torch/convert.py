@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from cuda_mat_tpu_torch.ops.banded_trisolve import BandedTriSolver
+from cuda_mat_tpu_torch.ops.dia_spmv import PallasDIAOperator
 from cuda_mat_tpu_torch.ops.stencil import ConstStencilOperator
 from cuda_mat_tpu_torch.precond.preconditioners import NeumannILUPreconditioner
 
@@ -73,3 +74,19 @@ def banded_trisolver_from_numpy(fields: dict, device) -> BandedTriSolver:
     return BandedTriSolver(*arrays, n=int(fields["n"]),
                            block=int(fields["block"]),
                            unroll=int(fields["unroll"]))
+
+
+def dia_operator_from_numpy(fields: dict, device) -> PallasDIAOperator:
+    """``fields``: the JAX ``PallasDIAOperator``'s fields — ``data`` (a
+    tuple of (npad,) numpy diagonals, or one (ndiag, npad) array),
+    ``offsets``, ``n``, ``block``, ``sub`` and ``vec_dtype`` (a dtype
+    name).  The diagonals are stacked into one (ndiag, npad) tensor of
+    the vectors' dtype."""
+    dtype = getattr(torch, str(np.dtype(fields["vec_dtype"])))
+    device = torch.device(device)
+    data = np.stack([np.asarray(d) for d in fields["data"]])
+    return PallasDIAOperator(
+        data=_tensor(data, dtype, device),
+        offsets=tuple(int(o) for o in fields["offsets"]),
+        n=int(fields["n"]), block=int(fields["block"]),
+        sub=int(fields["sub"]), vec_dtype=dtype, device=device)

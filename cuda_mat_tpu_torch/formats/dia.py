@@ -2,8 +2,9 @@
 ``data[d, i] = A[i, i + offsets[d]]`` (0 where out of range).
 
 Host-only numpy copy of :mod:`cuda_mat_tpu.formats.dia`, trimmed to what the
-port's solve path uses (stencil detection and the Neumann factor stencils
-read the diagonals from here).
+port's solve path uses (stencil detection, the Neumann factor stencils and
+the banded DIA operator read the diagonals from here; ``matvec`` is the
+host oracle of the tests).
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ class DIAMatrix:
     def ndiag(self) -> int:
         return int(self.offsets.shape[0])
 
+    @property
+    def bandwidth(self) -> int:
+        return int(max(abs(int(self.offsets[0])), abs(int(self.offsets[-1])))) \
+            if self.ndiag else 0
+
     @classmethod
     def from_csr(cls, csr, max_diags: int | None = None) -> "DIAMatrix":
         rows = np.repeat(np.arange(csr.n, dtype=np.int64), csr.row_lengths)
@@ -38,3 +44,13 @@ class DIAMatrix:
         dpos = np.searchsorted(uniq, offs)
         data[dpos, rows] = csr.data
         return cls(csr.n, csr.m, uniq.astype(np.int32), data, csr.nnz)
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        y = np.zeros(self.n, dtype=np.result_type(self.data, x))
+        for d in range(self.ndiag):
+            off = int(self.offsets[d])
+            lo = max(0, -off)
+            hi = min(self.n, self.m - off)
+            if hi > lo:
+                y[lo:hi] += self.data[d, lo:hi] * x[lo + off:hi + off]
+        return y

@@ -1,10 +1,11 @@
-"""Laplacian workload generators (host numpy copy of
+"""Laplacian workload generators and the split form (host numpy copy of
 :mod:`cuda_mat_tpu.models.problems`, trimmed to the solve path's matrices).
 
 ``grid_laplacian(100000, 100)`` is the 10M-row flagship;
 ``banded_laplacian(100)`` reproduces the symmetrized mat10000 fixture and
 ``laplacian_2d(30)`` the symmetrized mat900 fixture (reference
-mat10000.mtx:1-5, mat900.mtx:1-7).
+mat10000.mtx:1-5, mat900.mtx:1-7); ``banded_laplacian_dia(3163)`` is the
+bench's 10M-row SpMV matrix.
 """
 
 from __future__ import annotations
@@ -13,6 +14,25 @@ import numpy as np
 
 from cuda_mat_tpu_torch.formats.coo import COOMatrix
 from cuda_mat_tpu_torch.formats.csr import CSRMatrix
+from cuda_mat_tpu_torch.formats.dia import DIAMatrix
+
+
+def split_form(csr: CSRMatrix):
+    """Decompose ``A = A0 + diag(d)``: returns ``(A0, d)`` with A0 = A minus
+    its stored diagonal (the identity the reference's paired fixtures
+    encode, mat3 = mat3_A0 + diag(vec3_d); reference mat3_A0.mtx:7,
+    vec3_d.mtx:7-9), for the split-form entry point
+    (pbicgstab.cu:926-1088) on any square matrix."""
+    if csr.n != csr.m:
+        raise ValueError("split_form requires a square matrix")
+    rows = np.repeat(np.arange(csr.n, dtype=np.int64), csr.row_lengths)
+    cols = csr.indices.astype(np.int64)
+    off = rows != cols
+    d = np.zeros(csr.n, dtype=csr.data.dtype)
+    d[rows[~off]] = csr.data[~off]
+    a0 = CSRMatrix.from_coo(COOMatrix(csr.n, csr.m, rows[off], cols[off],
+                                      csr.data[off]))
+    return a0, d
 
 
 def grid_laplacian(r: int, c: int) -> CSRMatrix:
@@ -40,6 +60,24 @@ def grid_laplacian(r: int, c: int) -> CSRMatrix:
 def banded_laplacian(side: int) -> CSRMatrix:
     """5-point 2-D Laplacian on a ``side × side`` grid."""
     return grid_laplacian(side, side)
+
+
+def banded_laplacian_dia(side: int, dtype=np.float32) -> DIAMatrix:
+    """Direct DIA construction of :func:`banded_laplacian` — no COO or CSR
+    in between, so the 10M-row system builds in O(n) memory; equal to
+    ``banded_laplacian(side).to_dia()`` up to ``dtype``."""
+    n = side * side
+    offsets = np.array([-side, -1, 0, 1, side], dtype=np.int32)
+    data = np.zeros((5, n), dtype=dtype)
+    data[2] = 4.0
+    # row-aligned: data[d, i] = A[i, i + off]
+    data[1, 1:] = -1.0          # off -1: rows 1..n-1 ...
+    data[1, ::side] = 0.0       # ... except the first of each grid row
+    data[3, : n - 1] = -1.0     # off +1
+    data[3, side - 1::side] = 0.0
+    data[0, side:] = -1.0       # off -side
+    data[4, : n - side] = -1.0  # off +side
+    return DIAMatrix(n, n, offsets, data, int(np.count_nonzero(data)))
 
 
 def laplacian_2d(side: int) -> CSRMatrix:

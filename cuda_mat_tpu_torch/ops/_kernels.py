@@ -6,7 +6,8 @@ a plain C interface at first use (into ``cuda_mat_tpu_torch/build/``, see
 :mod:`~cuda_mat_tpu_torch.utils.build`) and bound through ctypes.  Nothing is
 built or imported from CUDA when this module is imported, so CPU-only
 installs import it freely.  Callers go through the front ends in
-:mod:`cuda_mat_tpu_torch.ops.stencil` and
+:mod:`cuda_mat_tpu_torch.ops.stencil`,
+:mod:`cuda_mat_tpu_torch.ops.dia_spmv` and
 :mod:`cuda_mat_tpu_torch.ops.banded_trisolve`, which send CPU tensors to the
 plain PyTorch twins and CUDA tensors here.
 """
@@ -29,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 MAX_TERMS = 64                # kMaxTerms of the kernels' by-value term struct
+MAX_DIAGS = 128               # kMaxDiags of kernel B3's by-value offsets
 SMEM_LIMIT = 232448           # dynamic shared memory one block may use on H100
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -81,10 +83,21 @@ def trisolve_library() -> ctypes.CDLL:
         "cmt_banded_sweep": [_I, _P, _P, _P, _P, _LL, _I, _I, _P]})
 
 
+def dia_library() -> ctypes.CDLL:
+    """The banded DIA SpMV B3 (``csrc/dia_spmv.cu``)."""
+    return _load("dia_spmv.cu", "libcmt_dia", {
+        "cmt_dia_spmv": [_I, _P, _P, _P, _P, _I, _LL, _LL, _P]})
+
+
 @functools.lru_cache(maxsize=64)
 def _term_arrays(terms) -> Tuple[np.ndarray, np.ndarray]:
     return (np.asarray([t[0] for t in terms], np.int64),
             np.asarray([t[1] for t in terms], np.float64))
+
+
+@functools.lru_cache(maxsize=64)
+def _offset_array(offsets) -> np.ndarray:
+    return np.asarray(offsets, np.int32)
 
 
 def msolve_tile(block: int) -> int:
@@ -180,4 +193,25 @@ def banded_sweep(f: torch.Tensor, wt: torch.Tensor, wct: torch.Tensor,
             y.data_ptr(), wt.shape[0], wt.shape[1], int(forward),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "banded_sweep")
+    return y
+
+
+def dia_spmv(data: torch.Tensor, x_pad: torch.Tensor, offsets,
+             block: int) -> torch.Tensor:
+    """Launch kernel B3 on ``x_pad``'s device and current stream."""
+    lib = dia_library()
+    _check_cuda(data, x_pad)
+    if len(offsets) > MAX_DIAGS:
+        raise ValueError(f"{len(offsets)} diagonals > {MAX_DIAGS}")
+    if x_pad.shape[0] >= 2 ** 31:
+        raise ValueError(f"padded length {x_pad.shape[0]} needs 64-bit"
+                         " indices; kernel B3 takes 32-bit ones")
+    y = torch.empty_like(x_pad)
+    off = _offset_array(tuple(offsets))
+    with torch.cuda.device(x_pad.device):
+        rc = lib.cmt_dia_spmv(
+            _DTYPE_CODE[x_pad.dtype], data.data_ptr(), x_pad.data_ptr(),
+            y.data_ptr(), off.ctypes.data, len(offsets), data.shape[1], block,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, rc, "dia_spmv")
     return y

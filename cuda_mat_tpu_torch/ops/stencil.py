@@ -257,6 +257,42 @@ def compose_stencil_terms(ta, tb, c_grid: int, stride: int):
     return tuple(res)
 
 
+def restride_dia(dia, c_grid: int, stride: int):
+    """Re-index an n = R·C banded matrix into the gap-strided coordinates
+    (n' = R·S): entry (i, j) moves to (i', j') with i' = (i//C)·S + i%C.
+    Gap rows and columns are structurally zero, so the result is banded
+    again, with offsets dr·C + dc mapped to dr·S + dc.
+
+    Builds the exact Neumann factor operators (N_l, N_u) that compose with a
+    :class:`ConstStencilOperator`'s padded vectors: the DIA data's zero
+    slots mask the gaps and the tail, so a plain banded DIA operator over
+    the restrided matrix keeps the padding a fixed point."""
+    from cuda_mat_tpu_torch.formats.dia import DIAMatrix
+
+    n = dia.n
+    assert n % c_grid == 0
+    r = n // c_grid
+    np_true = r * stride
+    offs = [int(o) for o in dia.offsets]
+    new_offs = []
+    for off in offs:
+        dr = int(np.rint(off / c_grid))
+        dc = off - dr * c_grid
+        if abs(dc) > stride - c_grid and dc != 0:
+            raise ValueError(f"offset {off}: |dc|={abs(dc)} exceeds the gap"
+                             f" width {stride - c_grid}")
+        new_offs.append(dr * stride + dc)
+    order = np.argsort(new_offs)
+    data = np.zeros((dia.ndiag, np_true), dtype=dia.data.dtype)
+    idx = np.arange(n, dtype=np.int64)
+    pos = (idx // c_grid) * stride + (idx % c_grid)
+    for k, d in enumerate(order):
+        data[k, pos] = dia.data[d]
+    return DIAMatrix(np_true, np_true,
+                     np.asarray([new_offs[d] for d in order], np.int32),
+                     data, dia.nnz)
+
+
 def strided_offsets(terms, c_grid: int, stride: int):
     """((off', scal), ...) for :func:`const_stencil_spmv_padded` from
     true-coordinate ``(off, dc, scal)`` terms."""

@@ -3,8 +3,9 @@
 On the CPU a front end runs its plain twin and never counts a launch.  Any
 other tensor goes to the kernel or raises: a failed build is never hidden
 by a fallback.  The ``gpu`` tests compare each CUDA kernel with its twin
-and skip without a card: the stencil kernels B1/B2 bit for bit (they round
-every product and sum on its own, as the twins do), the banded trisolve
+and skip without a card: the stencil kernels B1/B2 and the banded DIA SpMV
+B3 bit for bit (they round every product and sum on its own, as the twins
+do), the banded trisolve
 kernels B4a/B4b to 1e-12 (f64) and 1e-5 (f32) of max|twin| (they sum in
 another order than the twin's torch.matmul).
 """
@@ -16,6 +17,7 @@ import torch
 import cuda_mat_tpu_torch.models.problems as tprob
 from cuda_mat_tpu_torch.ops import _kernels
 from cuda_mat_tpu_torch.ops import banded_trisolve as tbt
+from cuda_mat_tpu_torch.ops import dia_spmv as tds
 from cuda_mat_tpu_torch.ops import stencil as tst
 from cuda_mat_tpu_torch.precond.preconditioners import (ILU0Preconditioner,
                                                         NeumannILUPreconditioner)
@@ -124,6 +126,52 @@ def test_trisolve_missing_build_raises_and_never_falls_back(monkeypatch):
     assert tbt.banded_sweep_padded.launches == 0
 
 
+def _dia(dtype=torch.float64, device="cpu"):
+    """The DIA operator of banded_laplacian_dia(40), block 2048, and a
+    random-valued band with offsets up to ±1500 in a block of 4096."""
+    lap = tds.PallasDIAOperator.from_dia(tprob.banded_laplacian_dia(40),
+                                         dtype=dtype, block=2048,
+                                         device=device)
+    n, offs = 3000, np.array([-1500, -3, 0, 1, 700], np.int32)
+    data = np.random.default_rng(0).uniform(-1.0, 1.0, (offs.size, n))
+    for d, off in enumerate(offs):
+        i = np.arange(n)
+        data[d, (i + off < 0) | (i + off >= n)] = 0.0
+    band = tds.PallasDIAOperator.from_dia(
+        tprob.DIAMatrix(n, n, offs, data, int(np.count_nonzero(data))),
+        dtype=dtype, block=4096, device=device)
+    return lap, band
+
+
+def test_dia_cpu_tensors_run_the_twin_and_count_nothing():
+    for op in _dia():
+        tds.reset_launch_counts()
+        x = op.pad_vec(np.random.default_rng(1).standard_normal(op.n))
+        assert torch.equal(op.matvec(x), tds.dia_spmv_block_padded_plain(
+            op.data, x, op.offsets, op.block, op.sub))
+        assert tds.dia_spmv_block_padded.launches == 0
+
+
+def test_dia_missing_build_raises_and_never_falls_back(monkeypatch):
+    op, _ = _dia()
+
+    def no_build():
+        raise RuntimeError("kernel build failed")
+
+    def twin_called(*a, **k):
+        raise AssertionError("fell back to the plain twin")
+
+    monkeypatch.setattr(_kernels, "dia_library", no_build)
+    monkeypatch.setattr(tds, "dia_spmv_block_padded_plain", twin_called)
+    tds.reset_launch_counts()
+    meta = torch.empty(op.npad + 2 * op.block, dtype=torch.float64,
+                       device="meta")
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tds.dia_spmv_block_padded(op.data.to("meta"), meta, op.offsets,
+                                  op.block, op.sub)
+    assert tds.dia_spmv_block_padded.launches == 0
+
+
 def test_msolve_fit_check():
     """The fused kernel takes a layout only while P_l's reads over the u
     tile stay inside the pad block and the tile fits shared memory."""
@@ -195,3 +243,21 @@ def test_trisolve_kernels_match_twins_on_card(dtype, side, block):
     # B4a runs B4b forward and backward: two sweeps of its own
     assert tbt.banded_sweep_padded.launches == 4
     assert tbt.fused_msolve_padded.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dia_kernel_equals_twin_on_card(dtype):
+    tds.reset_launch_counts()
+    for op in _dia(dtype, "cuda"):
+        x = op.pad_vec(np.random.default_rng(1).standard_normal(op.n))
+        torch.full_like(x, float("nan"))
+        y = op.matvec(x)
+        torch.cuda.synchronize()
+        assert torch.equal(y, tds.dia_spmv_block_padded_plain(
+            op.data, x, op.offsets, op.block, op.sub))
+        assert torch.count_nonzero(y[:op.block]) == 0
+        assert torch.count_nonzero(y[op.block + op.n:]) == 0
+    assert tds.dia_spmv_block_padded.launches == 2

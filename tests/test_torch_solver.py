@@ -85,13 +85,17 @@ def test_refined_reaches_1e6(name):
 def test_unported_configs_raise():
     a = tprob.grid_laplacian(8, 16)
     base = ct.SolverConfig(precond="ilu0_neumann")
-    for cfg in (ct.SolverConfig(precond="jacobi"),
-                base.replace(fuse_blas1=True), base.replace(fused_dots=True),
-                base.replace(check_halves=False), base.replace(reorder="rcm"),
-                base.replace(neumann_const_factors=False)):
+    for cfg in (base.replace(fuse_blas1=True), base.replace(fused_dots=True),
+                base.replace(check_halves=False), base.replace(reorder="rcm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ct.make_solver(a, cfg, device="cpu")
-    dense = tprob.CSRMatrix.from_coo(tprob.COOMatrix(
-        3, 3, [0, 0, 1, 2, 2], [0, 2, 1, 0, 2], [4.0, 1.0, 3.0, 2.0, 5.0]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.make_solver(dense, base, device="cpu")
+        ct.make_solver(a, base, format="ell", device="cpu")
+    # a diagonal plus an anti-diagonal: 65 distinct diagonals, no band
+    n = 64
+    i = np.arange(n)
+    wide = tprob.CSRMatrix.from_coo(tprob.COOMatrix(
+        n, n, np.concatenate([i, i]), np.concatenate([i, n - 1 - i]),
+        np.concatenate([np.full(n, 4.0), np.ones(n)])))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ct.make_solver(wide, base, device="cpu")
