@@ -40,7 +40,27 @@ script exits non-zero:
    against CPU and the goldens, in f64; then grid_laplacian(100000, 100)
    with exact-factor Neumann-ILU k=3, f32, tol 1e-4, as format="pallas_dia"
    (A and the factors on B3) and on the stencil layout (A on B1, the
-   restrided factors on B3), each solved twice.
+   restrided factors on B3), each solved twice;
+9. fusion kernel parity: B5 (the BLAS1-prologue msolve, three and two
+   input streams, three scalar pairs) and B6 (B1 with dots in its epilogue,
+   with and without <y, y>) against their twins, bitwise, pad blocks zero,
+   in f32 and f64, at the mat10000 layout and at the flagship's fuse_blas1
+   layout; B6 also equal to B1 and the same over two launches; times and
+   bounds;
+10. main path 4a, the flagship with the loop's opt-in fusions: a
+   fuse_blas1 solver's solves (i) fuse_blas1 and (ii) fuse_blas1 +
+   fused_dots + check_halves=False, and on path 1's solver (iii) fused_dots
+   and (iv) check_halves=False; the launches show B5 and B6 carrying every
+   msolve and matvec of their loops; (ii) refined to <= 1e-6; then a
+   prefer_mono solve of the mat10000 grid, card against CPU, in f64;
+11. 2-D stencil parity: B7 (StencilOperator2D) against its twin, bitwise,
+   ring zero, in f32 and f64, constant and variable coefficients, at the
+   3163 x 3163 grid, and its A x equal to B1's on the same grid; times, the
+   bound and torch.mv of the same matrix in sparse CSR;
+12. main path 4b, StencilOperator2D in place of a matrix: the mat10000 grid
+   solved by the h-form loop in both modes, card against CPU and the golden;
+   then the 3163 x 3163 grid (10M rows) in f64, tol 1e-6, on B7 beside
+   bicgstab of grid_laplacian(3163, 3163) on B1.
 
 The line before last is a JSON object with each kernel's launches, error,
 times and bound; the last line is {"ok": true, "device": {...}}.
@@ -65,6 +85,7 @@ from cuda_mat_tpu_torch.ops import _kernels
 from cuda_mat_tpu_torch.ops import banded_trisolve as bt
 from cuda_mat_tpu_torch.ops import dia_spmv as ds
 from cuda_mat_tpu_torch.ops import stencil as st
+from cuda_mat_tpu_torch.ops import stencil2d as t2d
 from cuda_mat_tpu_torch.precond import preconditioners as pre_mod
 from cuda_mat_tpu_torch.solvers import bicgstab as bs
 from cuda_mat_tpu_torch.utils.timing import PhaseTimer
@@ -90,6 +111,7 @@ F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 STENCIL_SRC = "cuda_mat_tpu_torch/csrc/const_stencil.cu"
 TRISOLVE_SRC = "cuda_mat_tpu_torch/csrc/banded_trisolve.cu"
 DIA_SRC = "cuda_mat_tpu_torch/csrc/dia_spmv.cu"
+STENCIL2D_SRC = "cuda_mat_tpu_torch/csrc/stencil2d.cu"
 BENCH_SIDE = 3163             # banded_laplacian_dia(3163): bench.py's 10M SpMV
 # exact-factor Neumann k=3, f32, tol 1e-4, b = ones: the port's CPU solves
 # of grid_laplacian(R, 100) at 50k-1M rows take 95-110 iterations in both
@@ -108,7 +130,23 @@ KERNELS = {
                             "cuda_mat_tpu/ops/pallas_trisolve.py:149"),
     "banded_sweep": (TRISOLVE_SRC, "cuda_mat_tpu/ops/pallas_trisolve.py:73"),
     "dia_spmv": (DIA_SRC, "cuda_mat_tpu/ops/pallas_spmv.py:75"),
+    "const_series_msolve_fma": (STENCIL_SRC,
+                                "cuda_mat_tpu/ops/pallas_stencil.py:681"),
+    "const_stencil_spmv_dots": (STENCIL_SRC,
+                                "cuda_mat_tpu/ops/pallas_stencil.py:416"),
+    "stencil2d_spmv": (STENCIL2D_SRC,
+                       "cuda_mat_tpu/ops/pallas_stencil.py:101"),
 }
+FMA_PAIRS = [(0.73, -1.21), (-0.4, 0.0), (0.0, 5.0)]   # test_neumann.py:265
+# the h-form loop on grid_laplacian(s, s), f64, tol 1e-6, b = x0 = ones
+# (tests/test_torch_hform_scan.py): the port's CPU solves take 120 / 350 /
+# 1203 iterations at s = 100 / 300 / 1000; on an H100 B1 takes 1214 / 2501
+# / 3615 / 5200 and B7 1342 / 2560 / 3411 / 5248 at s = 1000 / 2000 / 2500
+# / 3163 (the count per grid row grows with s, 1.2 to 1.6); 5200 ± 20%,
+# and the two kernels' counts, whose dots sum in other orders, at most 15%
+# apart
+HFORM_10M_ITERS = (4200, 6300)
+HFORM_10M_APART = 0.15
 
 
 @contextlib.contextmanager
@@ -388,13 +426,19 @@ def counts():
             "const_series_msolve": st.const_series_msolve_padded.launches,
             "banded_fused_msolve": bt.fused_msolve_padded.launches,
             "banded_sweep": bt.banded_sweep_padded.launches,
-            "dia_spmv": ds.dia_spmv_block_padded.launches}
+            "dia_spmv": ds.dia_spmv_block_padded.launches,
+            "const_series_msolve_fma":
+                st.const_series_msolve_fma_padded.launches,
+            "const_stencil_spmv_dots":
+                st.const_stencil_spmv_dots_padded.launches,
+            "stencil2d_spmv": t2d.stencil_spmv_padded.launches}
 
 
 def reset_counts():
     st.reset_launch_counts()
     bt.reset_launch_counts()
     ds.reset_launch_counts()
+    t2d.reset_launch_counts()
 
 
 def check_counted(path, got, kernels):
@@ -652,6 +696,311 @@ def neumann_10m_solve(ps, b, tag):
     return r
 
 
+def pads_zero(v, block, npad):
+    return not (torch.count_nonzero(v[:block])
+                or torch.count_nonzero(v[block + npad:]))
+
+
+def fusion_parity(ps, dtype, tag, stats, timed):
+    """B5 (three and two input streams, FMA_PAIRS) and B6 (with and without
+    <y, y>) against their twins on ``ps``'s layout, bitwise, both pad
+    blocks zero (outputs poisoned first); B6's y also equal to B1's and
+    both outputs the same over two launches.  ``timed``: times and bounds
+    (the f32 flagship layout)."""
+    op, pre = ps.op, ps.pre
+    if pre.fused != "kernel" or not pre.fma_fits:
+        raise RuntimeError(f"{tag}: fused={pre.fused!r}, fma_fits="
+                           f"{pre.fma_fits}; kernel B5 would not run")
+    rng = np.random.default_rng(2)
+    av, bv, cv = (op.pad_vec(rng.standard_normal(op.n)).to(dtype)
+                  for _ in range(3))
+    gap = op.gapmask.to(dtype)
+    layout = (pre.inv_d.to(dtype), pre.gap_ext.to(dtype),
+              pre.nl.strided_terms, pre.nu.strided_terms, op.np_true,
+              op.block, op.sub)
+    spmv = (op.strided_terms, op.np_true, op.block, op.sub)
+    name = "const_series_msolve_fma"
+    for c1, c2 in FMA_PAIRS:
+        s1 = torch.tensor(c1, dtype=dtype, device=DEVICE)
+        s2 = torch.tensor(c2, dtype=dtype, device=DEVICE)
+        for three in (True, False):
+            args = (av, s1, bv, s2 if three else None, cv if three else None,
+                    *layout)
+            poison_allocator(av)
+            poison_allocator(av)
+            pk, yk = st.const_series_msolve_fma_padded(*args)
+            pp, yp = st.const_series_msolve_fma_padded_plain(*args)
+            torch.cuda.synchronize()
+            what = f"{tag} {str(dtype)[6:]} {name} ({3 if three else 2}" \
+                   f" streams, c1 {c1}, c2 {c2 if three else None})"
+            if not (torch.isfinite(pk).all() and torch.isfinite(yk).all()):
+                raise RuntimeError(f"{what}: non-finite kernel output")
+            if not (pads_zero(pk, op.block, op.npad)
+                    and pads_zero(yk, op.block, op.npad)):
+                raise RuntimeError(f"{what}: pad blocks not zero")
+            err = max(float((pk - pp).abs().max()),
+                      float((yk - yp).abs().max()))
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            if err != 0.0:
+                raise RuntimeError(f"{what}: kernel differs from its twin"
+                                   f" (max abs {err!r}; bitwise required)")
+    print(f"{tag} {str(dtype)[6:]} {name}: bitwise equal to its twin (p and"
+          f" y) in {2 * len(FMA_PAIRS)} cases", flush=True)
+    name = "const_stencil_spmv_dots"
+    for with_self in (True, False):
+        poison_allocator(av)
+        yk, dk = st.const_stencil_spmv_dots_padded(av, gap, (bv,), *spmv,
+                                                   with_self=with_self)
+        yk2, dk2 = st.const_stencil_spmv_dots_padded(av, gap, (bv,), *spmv,
+                                                     with_self=with_self)
+        yp, dp = st.const_stencil_spmv_dots_padded_plain(
+            av, gap, (bv,), *spmv, with_self=with_self)
+        y1 = st.const_stencil_spmv_padded(av, gap, *spmv)
+        torch.cuda.synchronize()
+        what = f"{tag} {str(dtype)[6:]} {name} (with_self {with_self})"
+        if not (torch.isfinite(yk).all() and torch.isfinite(dk).all()):
+            raise RuntimeError(f"{what}: non-finite kernel output")
+        if not pads_zero(yk, op.block, op.npad):
+            raise RuntimeError(f"{what}: pad blocks not zero")
+        err = max(float((yk - yp).abs().max()), float((dk - dp).abs().max()))
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        same = (torch.equal(yk, y1) and torch.equal(yk, yk2)
+                and torch.equal(dk, dk2))
+        print(f"{what}: max|kernel - twin| = {err!r} (y and dots); y equal"
+              f" to B1's and both outputs the same over two launches:"
+              f" {same}; dots {dk.tolist()}", flush=True)
+        if err != 0.0 or not same:
+            raise RuntimeError(f"{what}: differs from its twin, from B1 or"
+                               " from its own second launch")
+    if timed:
+        vec = av.numel() * av.element_size()
+        n2 = len(pre.nl.strided_terms) + len(pre.nu.strided_terms)
+        ge = layout[1].numel() * layout[1].element_size()
+        t = {}
+        for three in (True, False):
+            args = (av, torch.tensor(0.5, dtype=dtype, device=DEVICE), bv,
+                    torch.tensor(-0.5, dtype=dtype, device=DEVICE)
+                    if three else None, cv if three else None, *layout)
+            t[three] = (
+                cuda_ms(lambda: st.const_series_msolve_fma_padded(*args)),
+                cuda_ms(lambda: st.const_series_msolve_fma_padded_plain(
+                    *args)),
+                bound((6 if three else 5) * vec + ge,
+                      ((4 if three else 2) + 2 * n2 + 2) * av.numel()))
+            print(f"{tag} const_series_msolve_fma, {3 if three else 2}"
+                  f" streams: kernel {t[three][0]:.4f} ms, twin"
+                  f" {t[three][1]:.4f} ms, bound"
+                  f" {t[three][2]['bound_ms']:.4f} ms"
+                  f" ({t[three][2]['bound_by']})", flush=True)
+        stats["const_series_msolve_fma"].update(
+            ms=t[True][0], plain_ms=t[True][1], **t[True][2],
+            ms_two_streams=t[False][0], bound_ms_two_streams=t[False][2][
+                "bound_ms"], library_ms=None,
+            library="none: no one PyTorch call computes the combination"
+            " and the polynomial msolve")
+        ms = cuda_ms(lambda: st.const_stencil_spmv_dots_padded(
+            av, gap, (bv,), *spmv, with_self=True))
+        pms = cuda_ms(lambda: st.const_stencil_spmv_dots_padded_plain(
+            av, gap, (bv,), *spmv, with_self=True))
+        grid = av.numel() // _kernels.DOTS_BLOCK
+        b6 = bound(3 * vec + gap.numel() * gap.element_size()
+                   + 2 * grid * av.element_size(),
+                   (2 * len(op.strided_terms) + 4) * av.numel())
+        stats["const_stencil_spmv_dots"].update(
+            ms=ms, plain_ms=pms, **b6, library_ms=None,
+            library="none: no one PyTorch call computes the SpMV with its"
+            " dots")
+        print(f"{tag} const_stencil_spmv_dots (one weight and <y, y>, the"
+              f" partials' torch.sum included): kernel {ms:.4f} ms, twin"
+              f" {pms:.4f} ms, bound {b6['bound_ms']:.4f} ms"
+              f" ({b6['bound_by']})", flush=True)
+
+
+def loop_steps(r):
+    """Steps the preconditioned loop took: ``iters``, plus one where it
+    left at a first half-step (that step is recorded but not counted)."""
+    h = r.residual_history
+    return r.iters + int(2 * r.iters < h.shape[0] and h[2 * r.iters] >= 0)
+
+
+def fusion_solve(ps, b, tag, want, ms_path1):
+    """One flagship solve under ``ps``'s flags, checked: CONVERGED in
+    ITERS, finite, and each kernel's launches as ``want(steps)`` gives
+    them ({kernel: count})."""
+    c0 = counts()
+    r = ps.solve(b)
+    got = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+    steps = loop_steps(r)
+    print(f"flagship {tag}: {r.status.name} {r.iters} it ({steps} loop"
+          f" steps), dtAlg {r.dt_alg * 1e3:.3f} ms,"
+          f" {r.dt_alg * 1e3 / max(r.iters, 1):.4f} ms/iter (path 1:"
+          f" {ms_path1:.4f}), true residual {r.residual_true!r}, launches"
+          f" {got}", flush=True)
+    if r.status != ct.SolverStatus.CONVERGED or not np.isfinite(r.x).all() \
+            or not ITERS[0] <= r.iters <= ITERS[1]:
+        raise RuntimeError(f"flagship {tag}: {r.status.name} in {r.iters}"
+                           f" iterations (want CONVERGED in {ITERS})")
+    if got != want(steps):
+        raise RuntimeError(f"flagship {tag}: launches {got}, want"
+                           f" {want(steps)}")
+    return r
+
+
+def mono_solve(dev):
+    """The mat10000 grid's f64 solve with the "mono" preconditioner
+    (from_csr(prefer_mono=True)), card against CPU."""
+    a = ct.grid_laplacian(*SMALL)
+    cfg64 = ct.SolverConfig(maxit=2000, tol=1e-8, dtype="float64",
+                            precond="ilu0_neumann", neumann_terms=4,
+                            milu_omega=0.96)
+    b = np.random.default_rng(0).uniform(1.0, 5.0, a.n)
+    res = {}
+    for d in (dev, "cpu"):
+        op = ct.make_solver(a, cfg64, device=d).op
+        pre = pre_mod.NeumannILUPreconditioner.from_csr(
+            a, terms=4, pad_like=op, prefer_mono=True, milu_omega=0.96)
+        if pre.fused != "mono":
+            raise RuntimeError(f"prefer_mono gave fused={pre.fused!r}")
+        c0 = counts()
+        res[d] = bs.PreparedSolver(a, op, pre, cfg64, 0.0).solve(b)
+        if d == dev:
+            got = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+    r, rc = res[dev], res["cpu"]
+    dx = float(np.linalg.norm(r.x - rc.x) / np.linalg.norm(rc.x))
+    steps = loop_steps(r)
+    print(f"mat10000 f64 mono ({len(pre.nl.terms)} terms, one B1 launch per"
+          f" msolve): card {r.status.name} {r.iters} it, cpu"
+          f" {rc.status.name} {rc.iters} it, |x diff|/|x| = {dx!r}, true"
+          f" residual {r.residual_true!r}, card launches {got}", flush=True)
+    if not (r.converged and rc.converged and abs(r.iters - rc.iters) <= 2
+            and dx <= 1e-8):
+        raise RuntimeError("mono: card and CPU solves disagree")
+    if got != {"const_stencil_spmv": 4 * steps + 1}:
+        raise RuntimeError(f"mono: launches {got}")
+
+
+def stencil2d_parity(ps3, a3, stats, smi):
+    """B7 against its twin at the 3163 x 3163 grid, bitwise, ring zero, in
+    f32 and f64, constant and variable coefficients; its unpadded A·x equal
+    to B1's (``ps3.op``) on the same x; f32 times, bounds and torch.mv."""
+    x = np.random.default_rng(6).standard_normal(a3.n)
+    y_b1 = {}
+    for dtype in (torch.float32, torch.float64):
+        o = dataclasses.replace(ps3.op, gapmask=ps3.op.gapmask.to(dtype),
+                                vec_dtype=dtype)
+        y_b1[dtype] = o.unpad_vec(o.matvec(o.pad_vec(x)))
+    for constant in (True, False):
+        for dtype in (torch.float32, torch.float64):
+            op = ct.StencilOperator2D.laplacian(BENCH_SIDE, BENCH_SIDE, dtype,
+                                                constant=constant,
+                                                device=DEVICE)
+            xp = op.pad_vec(x)
+            args = (op.coeffs, xp, op.offsets, op.tr, op.tc, op.rp, op.cp,
+                    op.r, op.c)
+            poison_allocator(xp)
+            yk = t2d.stencil_spmv_padded(*args)
+            yp = t2d.stencil_spmv_padded_plain(*args)
+            torch.cuda.synchronize()
+            tag = (f"{BENCH_SIDE}^2 {'constant' if constant else 'variable'}"
+                   f" {str(dtype)[6:]} stencil2d_spmv (padded"
+                   f" {op.rp + 2 * op.tr}x{op.cp + 2 * op.tc})")
+            if not torch.isfinite(yk).all():
+                raise RuntimeError(f"{tag}: non-finite kernel output")
+            ring = yk.view(op.rp + 2 * op.tr, op.cp + 2 * op.tc).clone()
+            ring[op.tr:op.tr + op.r, op.tc:op.tc + op.c] = 0
+            err = float((yk - yp).abs().max())
+            d1 = float((op.unpad_vec(yk) - y_b1[dtype]).abs().max())
+            line = (f"{tag}: max|kernel - twin| = {err!r}; max|B7 - B1| on"
+                    f" the grid = {d1!r}")
+            stats["stencil2d_spmv"]["max_abs_err"] = max(
+                stats["stencil2d_spmv"]["max_abs_err"], err)
+            if dtype == torch.float32:
+                ms = cuda_ms(lambda: t2d.stencil_spmv_padded(*args))
+                pms = cuda_ms(lambda: t2d.stencil_spmv_padded_plain(*args))
+                b7 = bound((2 * xp.numel() + op.coeffs.numel())
+                           * xp.element_size(),
+                           2 * len(op.offsets) * op.rp * op.cp)
+                line += (f"; kernel {ms:.4f} ms, twin {pms:.4f} ms, bound"
+                         f" {b7['bound_ms']:.4f} ms ({b7['bound_by']})")
+                if constant:
+                    stats["stencil2d_spmv"].update(ms=ms, plain_ms=pms, **b7)
+                else:
+                    stats["stencil2d_spmv"].update(
+                        ms_variable=ms, plain_ms_variable=pms,
+                        bound_ms_variable=b7["bound_ms"])
+            print(line, flush=True)
+            if err != 0.0 or torch.count_nonzero(ring) or d1 != 0.0:
+                raise RuntimeError(f"{tag}: differs from its twin or from B1,"
+                                   " or the ring is not zero")
+    a_t = torch_csr(a3.indptr, a3.indices, a3.data, a3.n, torch.float32)
+    x_t = torch.from_numpy(x).to(torch.float32).to(DEVICE)
+    library_time(stats, "stencil2d_spmv", lambda: torch.mv(a_t, x_t),
+                 "torch.mv(sparse CSR A, x)",
+                 lambda y: float((y - y_b1[torch.float32]).abs().max()
+                                 / y_b1[torch.float32].abs().max()))
+    print(f"stencil2d_spmv timed on: {smi}", flush=True)
+
+
+def stencil2d_solves(dev):
+    """StencilOperator2D.laplacian(100, 100) through solve(op, ones) in
+    both modes, f64, tol 1e-6, card against CPU and mat10000's h-form
+    golden; B7 carries every matvec."""
+    cfg = ct.SolverConfig(maxit=2000, tol=1e-6, dtype="float64")
+    one = np.ones(SMALL[0] * SMALL[1])
+    for constant in (True, False):
+        def run(d):
+            op = ct.StencilOperator2D.laplacian(*SMALL, torch.float64,
+                                                constant=constant, device=d)
+            return ct.solve(op, one, cfg, device=d)
+
+        c0 = counts()["stencil2d_spmv"]
+        r = run(dev)
+        launched = counts()["stencil2d_spmv"] - c0
+        line = (f"solve(StencilOperator2D.laplacian(100, 100,"
+                f" constant={constant}), ones): card {r.status.name}"
+                f" {r.iters} it on stencil2d_spmv ({launched} launches)")
+        if launched < 2 * r.iters + 1 or r.residual_true is not None:
+            raise RuntimeError(line + " — B7 did not carry A")
+        check_card_cpu(line, r, run("cpu"), HFORM_GOLDEN["mat10000"],
+                       HFORM_SLACK)
+
+
+def hform_10m(ps3, a3, dev):
+    """The 3163 x 3163 grid, f64, tol 1e-6, b = x0 = ones: the h-form loop
+    on B7 (StencilOperator2D, constant) beside bicgstab on B1."""
+    b = np.ones(a3.n)
+    r0 = float(np.linalg.norm(b - bs.host_matvec_f64(a3, np.ones(a3.n))))
+    op = ct.StencilOperator2D.laplacian(BENCH_SIDE, BENCH_SIDE, torch.float64,
+                                        device=dev)
+    cfg = ps3._config
+    out = {}
+    for tag, run in (("B7 StencilOperator2D", lambda: ct.solve(op, b, cfg,
+                                                               device=dev)),
+                     ("B1 bicgstab", lambda: ps3.solve(b))):
+        c0 = counts()
+        r = run()
+        got = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        true_rel = float(np.linalg.norm(b - bs.host_matvec_f64(a3, r.x))
+                         / r0)
+        print(f"{BENCH_SIDE}^2 h-form on {tag}: {r.status.name} {r.iters} it,"
+              f" dtAlg {r.dt_alg * 1e3:.3f} ms"
+              f" ({r.dt_alg * 1e3 / max(r.iters, 1):.4f} ms/iter), true f64"
+              f" relative residual {true_rel!r}, launches {got}", flush=True)
+        kernel = "stencil2d_spmv" if tag.startswith("B7") \
+            else "const_stencil_spmv"
+        if not (r.converged and np.isfinite(r.x).all() and true_rel <= 1e-5
+                and HFORM_10M_ITERS[0] <= r.iters <= HFORM_10M_ITERS[1]
+                and got.get(kernel, 0) >= 2 * r.iters + 1):
+            raise RuntimeError(f"{BENCH_SIDE}^2 {tag}: want CONVERGED in"
+                               f" {HFORM_10M_ITERS}, true residual <= 1e-5,"
+                               f" {kernel} carrying A")
+        out[tag] = r.iters
+    it7, it1 = out.values()
+    if abs(it7 - it1) > HFORM_10M_APART * it1:
+        raise RuntimeError(f"{BENCH_SIDE}^2: B7 took {it7} iterations, B1"
+                           f" {it1}: more than {HFORM_10M_APART:.0%} apart")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -671,7 +1020,8 @@ def main():
         with ThreadPoolExecutor() as pool:
             for fut in [pool.submit(f) for f in (
                     _kernels.library, _kernels.trisolve_library,
-                    _kernels.dia_library, native.library)]:
+                    _kernels.dia_library, _kernels.stencil2d_library,
+                    native.library)]:
                 fut.result()
         print(f"built at once: kernels {_kernels.build_seconds}, native"
               f" parser/factorizer {native.build_seconds:.2f} s")
@@ -764,7 +1114,65 @@ def main():
               f" {pc['no_poll']:.4f} ms/it without (host enqueue"
               f" {pc['enqueue']:.4f} ms/it); poll costs"
               f" {pc['poll'] - pc['no_poll']:.4f} ms/it")
-    del ps, a
+    ms_path1 = r.dt_alg * 1e3 / r.iters
+
+    with phase(timer, "fusion kernel parity"):
+        for dt in (torch.float32, torch.float64):
+            fusion_parity(ps_s, dt, "mat10000 layout", stats, timed=False)
+        cfg_f = cfg.replace(fuse_blas1=True)
+        ps_f = ct.make_solver(a, cfg_f, device=dev)
+        print(f"flagship fuse_blas1 setup (make_solver): {ps_f.dt_setup:.3f}"
+              f" s; layout stride {ps_f.op.stride} sub {ps_f.op.sub} block"
+              f" {ps_f.op.block} npad {ps_f.op.npad}; msolve mode"
+              f" {ps_f.pre.fused}, B5 fits {ps_f.pre.fma_fits}", flush=True)
+        for dt in (torch.float32, torch.float64):
+            fusion_parity(ps_f, dt, "flagship fuse_blas1 layout", stats,
+                          timed=dt == torch.float32)
+
+    # ---- main path 4a: the flagship with the loop's opt-in fusions
+    reset_counts()
+    with phase(timer, "flagship with fusions"):
+        every = cfg.replace(fuse_blas1=True, fused_dots=True,
+                            check_halves=False)
+        cases = [
+            ("(i) fuse_blas1", ps_f, lambda s: {
+                "const_stencil_spmv": 2 * s + 1,
+                "const_series_msolve_fma": 2 * s}),
+            ("(ii) fuse_blas1 + fused_dots + check_halves=False",
+             bs.PreparedSolver(a, ps_f.op, ps_f.pre, every, ps_f.dt_setup),
+             lambda s: {"const_stencil_spmv": 1,
+                        "const_series_msolve_fma": 2 * s,
+                        "const_stencil_spmv_dots": 2 * s}),
+            ("(iii) fused_dots", bs.PreparedSolver(
+                a, ps.op, ps.pre, cfg.replace(fused_dots=True),
+                ps.dt_setup), lambda s: {
+                    "const_stencil_spmv": 1, "const_series_msolve": 2 * s,
+                    "const_stencil_spmv_dots": 2 * s}),
+            ("(iv) check_halves=False", bs.PreparedSolver(
+                a, ps.op, ps.pre, cfg.replace(check_halves=False),
+                ps.dt_setup), lambda s: {
+                    "const_stencil_spmv": 2 * s + 1,
+                    "const_series_msolve": 2 * s}),
+        ]
+        for tag, solver, want in cases:
+            fusion_solve(solver, b, tag, want, ms_path1)
+        rr = ct.solve_refined(a, b, every.replace(tol=1e-6), 1e-4,
+                              solver=cases[1][1])
+        true_rel = float(
+            np.linalg.norm(b - bs.host_matvec_f64(a, rr.x))
+            / np.linalg.norm(b - bs.host_matvec_f64(a, np.ones(a.n))))
+        print(f"refined through (ii): {rr.status.name}, true f64 relative"
+              f" residual {true_rel!r}, {rr.iters} inner iterations, dtAlg"
+              f" {rr.dt_alg * 1e3:.3f} ms", flush=True)
+        if rr.status != ct.SolverStatus.CONVERGED or not true_rel <= 1e-6:
+            raise RuntimeError(f"refinement through (ii) reached only"
+                               f" {true_rel!r}")
+        mono_solve(dev)
+    path4a = counts()
+    check_counted("main path 4a (flagship with fusions)", path4a,
+                  ("const_stencil_spmv", "const_series_msolve",
+                   "const_series_msolve_fma", "const_stencil_spmv_dots"))
+    del ps, ps_f, cases, a
 
     cfg_ilu = ct.SolverConfig(maxit=2000, tol=1e-6, dtype="float64",
                               precond="ilu0", trisolve_block=128)
@@ -867,10 +1275,28 @@ def main():
     path3 = counts()
     check_counted("main path 3 (banded DIA)", path3,
                   ("dia_spmv", "const_stencil_spmv"))
+    del ps_dia, ps_st, a
 
+    with phase(timer, "2-D stencil parity"):
+        a3 = ct.grid_laplacian(BENCH_SIDE, BENCH_SIDE)
+        ps3 = ct.make_solver(a3, ct.SolverConfig(maxit=20000, tol=1e-6),
+                             device=dev)
+        stencil2d_parity(ps3, a3, stats, smi)
+
+    # ---- main path 4b: StencilOperator2D in place of a matrix
+    reset_counts()
+    with phase(timer, "StencilOperator2D solves"):
+        stencil2d_solves(dev)
+    with phase(timer, "10M h-form on B7 beside B1"):
+        hform_10m(ps3, a3, dev)
+    path4b = counts()
+    check_counted("main path 4b (StencilOperator2D)", path4b,
+                  ("stencil2d_spmv", "const_stencil_spmv"))
+
+    paths = (path1, path2, path3, path4a, path4b)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": path1[k] + path2[k] + path3[k], **stats[k]}
+         "launches": sum(p[k] for p in paths), **stats[k]}
         for k, (src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

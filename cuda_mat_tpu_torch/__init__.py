@@ -7,7 +7,10 @@ entry points (``bicgstab``, ``bicgstab_split``, ``bicgstab_lu_precond``)
 and ``solve``/``make_solver`` on banded matrices — constant-coefficient
 grid stencils matrix-free, other bands as DIA — with no preconditioner,
 Jacobi, exact ILU(0) or the Neumann-series ILU(0)/MILU(0) (constant or
-exact factors; the 10M-row flagship), and f64 host refinement.
+exact factors; the 10M-row flagship), the loop's opt-in fusions
+(``fuse_blas1``, ``fused_dots``, ``check_halves=False``), the 2-D tile
+stencil ``StencilOperator2D`` in place of a matrix, and f64 host
+refinement.
 The hot kernels are hand-written for Hopper (``csrc/*.cu``, built with nvcc
 at first use); on CPU tensors they run as plain PyTorch.
 """
@@ -19,6 +22,7 @@ from cuda_mat_tpu_torch.io.mmio import load_mm_sparse_matrix, read_mm
 from cuda_mat_tpu_torch.io.vectors import to_dense_vector
 from cuda_mat_tpu_torch.models.problems import (banded_laplacian_dia,
                                                grid_laplacian, split_form)
+from cuda_mat_tpu_torch.ops.stencil2d import StencilOperator2D
 from cuda_mat_tpu_torch.solvers.bicgstab import (PreparedSolver, bicgstab,
                                                  bicgstab_lu_precond,
                                                  bicgstab_split, make_solver,
@@ -33,6 +37,7 @@ __all__ = [
     "SolveResult",
     "SolverConfig",
     "SolverStatus",
+    "StencilOperator2D",
     "banded_laplacian_dia",
     "bicgstab",
     "bicgstab_lu_precond",

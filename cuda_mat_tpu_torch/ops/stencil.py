@@ -6,9 +6,12 @@ half), in three parts:
 - **Host algebra** (numpy, copied from the JAX module so that both packages
   choose identical layouts): stencil detection, the gap-strided layout,
   Neumann-series polynomial expansion and the fused-layout planner.
-- **Kernel front ends**: :func:`const_stencil_spmv_padded` (kernel B1) and
-  :func:`const_series_msolve_padded` (kernel B2), each beside its plain
-  PyTorch twin (``*_plain``).  A front end sends a CPU tensor to the twin and
+- **Kernel front ends**: :func:`const_stencil_spmv_padded` (kernel B1),
+  :func:`const_series_msolve_padded` (kernel B2),
+  :func:`const_series_msolve_fma_padded` (kernel B5, B2 behind the loop's
+  BLAS1 update) and :func:`const_stencil_spmv_dots_padded` (kernel B6, B1
+  with dot products in its epilogue), each beside its plain PyTorch twin
+  (``*_plain``).  A front end sends a CPU tensor to the twin and
   a CUDA tensor to the hand-written kernel (:mod:`._kernels`), or raises; it
   never falls back.  Each keeps a plain-int ``launches`` count of kernel
   launches, so a run can show that its path went through the kernels.
@@ -481,10 +484,130 @@ def const_series_msolve_padded(x_pad: torch.Tensor, inv_d_pad: torch.Tensor,
 const_series_msolve_padded.launches = 0
 
 
+def const_stencil_spmv_dots_padded_plain(x_pad: torch.Tensor,
+                                         gapmask: torch.Tensor, ws, terms,
+                                         np_true: int, block: int, sub: int,
+                                         with_self: bool = False,
+                                         base: int = 0):
+    """Plain PyTorch twin of kernel B6: B1's twin for y, then each product
+    ``w·y`` (and ``y·y``) cut into rows of ``DOTS_BLOCK`` and summed within
+    each row by the kernel's halving tree, ``v[:, :h] + v[:, h:]``; the row
+    partials are summed by the front end's own ``torch.sum``."""
+    y = const_stencil_spmv_padded_plain(x_pad, gapmask, terms, np_true,
+                                        block, sub, base)
+    prods = [w * y for w in ws] + ([y * y] if with_self else [])
+    parts = []
+    for v in prods:
+        v = v.view(-1, _kernels.DOTS_BLOCK)
+        while v.shape[1] > 1:
+            h = v.shape[1] // 2
+            v = v[:, :h] + v[:, h:]
+        parts.append(v)
+    return y, torch.sum(torch.cat(parts, dim=1), dim=0)
+
+
+def const_stencil_spmv_dots_padded(x_pad: torch.Tensor, gapmask: torch.Tensor,
+                                   ws, terms, np_true: int, block: int,
+                                   sub: int, with_self: bool = False,
+                                   base: int = 0):
+    """``(y_pad, dots)`` with ``y_pad = A x_pad`` (the values of
+    :func:`const_stencil_spmv_padded`) and ``dots = (<w, y>, [<y, y>])``
+    for the one weight vector in ``ws`` (or none), the second when
+    ``with_self`` (counterpart of ``cuda_mat_tpu.ops.pallas_stencil.
+    const_stencil_spmv_dots_padded``, whose loop passes one weight: the
+    dots are taken in the kernel's epilogue as per-block partials and
+    summed over blocks here).  Pads and gaps of y and of padded weights are
+    zero, so the partials are the true-coordinate dots.  CPU tensors run
+    the plain twin, CUDA tensors kernel B6."""
+    _check_layout(x_pad, block, sub, terms)
+    ws = tuple(ws)
+    if len(ws) > 1 or not (ws or with_self):
+        raise ValueError("one weight vector at most, and at least one dot")
+    if tuple(gapmask.shape) != (block,) or any(w.shape != x_pad.shape
+                                               for w in ws):
+        raise ValueError(f"gapmask must have shape ({block},) and the"
+                         " weight x_pad's shape")
+    if x_pad.device.type == "cpu":
+        return const_stencil_spmv_dots_padded_plain(
+            x_pad, gapmask, ws, terms, np_true, block, sub, with_self, base)
+    y, partials = _kernels.const_stencil_spmv_dots(
+        x_pad, gapmask, ws, terms, np_true, block, base, with_self)
+    const_stencil_spmv_dots_padded.launches += 1
+    return y, torch.sum(partials, dim=0)
+
+
+const_stencil_spmv_dots_padded.launches = 0
+
+
+def fma_combine(a, c1, b, c2=None, c=None):
+    """``a + c1·(b + c2·c)``, or ``a + c1·b`` without ``c``: kernel B5's
+    prologue, one rounding per operation in this order."""
+    return a + c1 * b if c is None else a + c1 * (b + c2 * c)
+
+
+def const_series_msolve_fma_padded_plain(a_pad, c1, b_pad, c2, c_pad,
+                                         inv_d_pad, gapmask_ext, terms_l,
+                                         terms_u, np_true: int, block: int,
+                                         sub: int, base: int = 0):
+    """Plain PyTorch twin of kernel B5: the combination, then B2's twin."""
+    p = fma_combine(a_pad, c1, b_pad, c2, c_pad)
+    return p, const_series_msolve_padded_plain(
+        p, inv_d_pad, gapmask_ext, terms_l, terms_u, np_true, block, sub,
+        base)
+
+
+def const_series_msolve_fma_padded(a_pad: torch.Tensor, c1,
+                                   b_pad: torch.Tensor, c2=None, c_pad=None,
+                                   inv_d_pad=None,
+                                   gapmask_ext=None, terms_l=None,
+                                   terms_u=None, np_true: int = 0,
+                                   block: int = 0, sub: int = 0,
+                                   base: int = 0):
+    """BLAS1-prologue fused msolve (counterpart of ``cuda_mat_tpu.ops.
+    pallas_stencil.const_series_msolve_fma_padded``), one launch, two
+    outputs::
+
+        p = a + c1·(b + c2·c)          (or a + c1·b when c_pad is None)
+        y = P_u · (inv_d ∘ (P_l p))
+
+    returning ``(p_pad, y_pad)``.  ``c1``/``c2``: scalars, as 0-d tensors
+    on the vectors' device (the loop's β, −α, −ω), which the kernel reads
+    on the device; a Python number is uploaded first.  Same layout as
+    :func:`const_series_msolve_padded`.  CPU tensors run the plain twin,
+    CUDA tensors kernel B5."""
+    _check_layout(a_pad, block, sub, terms_l)
+    _check_layout(a_pad, block, sub, terms_u)
+    vecs = [b_pad, inv_d_pad] + ([] if c_pad is None else [c_pad])
+    if any(v.shape != a_pad.shape for v in vecs):
+        raise ValueError("b_pad, c_pad and inv_d_pad must match a_pad's shape")
+    hpad = (gapmask_ext.shape[0] - block) // 2
+    if gapmask_ext.dim() != 1 or gapmask_ext.shape[0] != block + 2 * hpad \
+            or hpad < 0:
+        raise ValueError("gapmask_ext must have shape (block + 2*hpad,)")
+    if a_pad.device.type == "cpu":
+        return const_series_msolve_fma_padded_plain(
+            a_pad, c1, b_pad, c2, c_pad, inv_d_pad, gapmask_ext, terms_l,
+            terms_u, np_true, block, sub, base)
+
+    def on_device(s):
+        return torch.as_tensor(s, dtype=a_pad.dtype, device=a_pad.device)
+
+    out = _kernels.const_series_msolve_fma(
+        a_pad, on_device(c1), b_pad, None if c_pad is None else on_device(c2),
+        c_pad, inv_d_pad, gapmask_ext, terms_l, terms_u, np_true, block, base)
+    const_series_msolve_fma_padded.launches += 1
+    return out
+
+
+const_series_msolve_fma_padded.launches = 0
+
+
 def reset_launch_counts() -> None:
-    """Set both kernels' launch counts to 0."""
+    """Set the four kernels' launch counts to 0."""
     const_stencil_spmv_padded.launches = 0
     const_series_msolve_padded.launches = 0
+    const_stencil_spmv_dots_padded.launches = 0
+    const_series_msolve_fma_padded.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -560,3 +683,10 @@ class ConstStencilOperator:
         return const_stencil_spmv_padded(x_pad, self.gapmask,
                                          self.strided_terms, self.np_true,
                                          self.block, self.sub)
+
+    def matvec_dots(self, x_pad: torch.Tensor, ws, with_self: bool = False):
+        """``(A x, (<w, Ax> for w in ws) [+ <Ax, Ax>])`` in one launch —
+        see :func:`const_stencil_spmv_dots_padded`."""
+        return const_stencil_spmv_dots_padded(
+            x_pad, self.gapmask, ws, self.strided_terms, self.np_true,
+            self.block, self.sub, with_self)

@@ -3,7 +3,7 @@
 ILU(0) through the banded triangular solver (kernels B4a/B4b), the adapter
 that runs a true-n preconditioner on padded vectors, and the Neumann-series
 ILU(0) on a padded operator's layout — constant factors on the gap-strided
-stencil layout (kernels B1/B2), or the exact factors as banded DIA operators
+stencil layout (kernels B1/B2/B5), or the exact factors as banded DIA operators
 (kernel B3), restrided into the stencil layout where A is a stencil.
 
 For the Neumann series, with ``L = I + N_l`` (unit lower) and
@@ -31,9 +31,10 @@ from cuda_mat_tpu_torch.ops import _kernels
 from cuda_mat_tpu_torch.ops.banded_trisolve import BandedTriSolver, bandwidth
 from cuda_mat_tpu_torch.ops.dia_spmv import PallasDIAOperator
 from cuda_mat_tpu_torch.ops.stencil import (
-    ConstStencilOperator, const_factor_terms, const_series_msolve_padded,
-    extend_gapmask, msolve_halo, neumann_poly_terms, restride_dia,
-    strided_offsets)
+    ConstStencilOperator, compose_stencil_terms, const_factor_terms,
+    const_series_msolve_fma_padded, const_series_msolve_padded,
+    extend_gapmask, fma_combine, msolve_halo, neumann_poly_terms,
+    restride_dia, strided_offsets)
 from cuda_mat_tpu_torch.reference.cpu_solvers import ilu0_factorize
 
 
@@ -134,6 +135,10 @@ class NeumannILUPreconditioner:
     vector.  Modes (``fused``), as in the JAX package (the exact factors as
     DIA operators take the sequential mode, on kernel B3):
 
+    - ``"mono"``: only on request (``prefer_mono``): the whole M⁻¹ ≈
+      P_u·d*·P_l, the diagonal too approximated by its interior constant
+      d*, composed into ONE stencil ``nl`` and applied by one launch of
+      kernel B1;
     - ``"kernel"``: the whole msolve ``P_u·(inv_d ∘ P_l·x)`` in ONE launch of
       kernel B2, the intermediate kept in shared memory;
     - ``"series"``: each triangle's series expanded into one stencil
@@ -144,21 +149,23 @@ class NeumannILUPreconditioner:
     The first mode whose layout constraints hold is taken; the others are
     the fallbacks the JAX package itself takes."""
 
-    nl: object             # N_l operator, or P_l when fused
-    nu: object             # N_u operator, or P_u when fused
-    inv_d: torch.Tensor    # padded 1/diag(U)
+    nl: object             # N_l operator, P_l when fused, all of M⁻¹ (mono)
+    nu: object             # N_u operator, or P_u when fused; None (mono)
+    inv_d: torch.Tensor    # padded 1/diag(U); empty (mono)
     terms: int             # k (total series terms; k=1 degrades to Jacobi)
-    fused: object = False  # False | "series" | "kernel"
+    fused: object = False  # False | "series" | "kernel" | "mono"
     gap_ext: object = None  # (block + 2·hpad,) extended gapmask ("kernel")
+    fma_fits: bool = False  # kernel B5 takes the "kernel" layout
 
     @classmethod
     def from_csr(cls, csr, terms: int = 3, pad_like=None,
-                 const_factors: bool = True,
+                 const_factors: bool = True, prefer_mono: bool = False,
                  milu_omega: float = 0.0) -> "NeumannILUPreconditioner":
         """``pad_like``: A's padded operator — the factors are built in its
         layout, dtype and device.  On a
         :class:`~cuda_mat_tpu_torch.ops.stencil.ConstStencilOperator` with
-        ``const_factors``, the factors become constant stencils (B1/B2);
+        ``const_factors``, the factors become constant stencils (B1/B2/B5,
+        and with ``prefer_mono`` the "mono" mode where it fits kernel B1);
         otherwise they are the exact factors as banded
         :class:`~cuda_mat_tpu_torch.ops.dia_spmv.PallasDIAOperator`
         operators (B3), restrided into the stencil layout where
@@ -173,7 +180,8 @@ class NeumannILUPreconditioner:
         low, up, diag = neumann_factors(csr, milu_omega)
         stencil = isinstance(pad_like, ConstStencilOperator)
         if stencil and const_factors:
-            return cls._const_factors(low, up, diag, terms, pad_like)
+            return cls._const_factors(low, up, diag, terms, pad_like,
+                                      prefer_mono)
         low_d = low.to_dia(max_diags=128)
         up_d = up.to_dia(max_diags=128)
         if stencil:
@@ -190,27 +198,39 @@ class NeumannILUPreconditioner:
         return cls(nl, nu, pad_like.pad_vec(1.0 / diag), terms)
 
     @classmethod
-    def _const_factors(cls, low, up, diag, terms,
-                       pad_like) -> "NeumannILUPreconditioner":
+    def _const_factors(cls, low, up, diag, terms, pad_like,
+                       prefer_mono: bool) -> "NeumannILUPreconditioner":
         """The deep-interior constant stencils of the factors, in the first
-        of the modes "kernel", "series", sequential whose layout holds."""
+        of the modes ("mono" if asked for), "kernel", "series", sequential
+        whose layout holds."""
         nl = _const_factor_operator(low, pad_like)
         nu = _const_factor_operator(up, pad_like)
-        inv_d = pad_like.pad_vec(1.0 / diag)
         fl = _fused_series_operator(nl, terms)
         fu = _fused_series_operator(nu, terms)
+        if fl is not None and fu is not None and prefer_mono:
+            mono = _mono_operator(fl, fu, diag, pad_like)
+            if mono is not None:
+                return cls(mono, None,
+                           torch.zeros(0, dtype=pad_like.vec_dtype,
+                                       device=pad_like.device),
+                           terms, fused="mono")
+        inv_d = pad_like.pad_vec(1.0 / diag)
         if fl is None or fu is None:
             return cls(nl, nu, inv_d, terms)
         itemsize = torch.empty((), dtype=pad_like.vec_dtype).element_size()
-        if _kernels.msolve_fits(pad_like.block, fl.strided_terms,
-                                fu.strided_terms, itemsize):
-            hpad = msolve_halo(fu.strided_terms)
+        tl, tu = fl.strided_terms, fu.strided_terms
+        if _kernels.msolve_fits(pad_like.block, tl, tu, itemsize):
             gap_ext = torch.as_tensor(extend_gapmask(
-                pad_like.gapmask.cpu().numpy(), hpad)).to(pad_like.device)
-            return cls(fl, fu, inv_d, terms, fused="kernel", gap_ext=gap_ext)
+                pad_like.gapmask.cpu().numpy(), msolve_halo(tu))).to(
+                    pad_like.device)
+            return cls(fl, fu, inv_d, terms, fused="kernel", gap_ext=gap_ext,
+                       fma_fits=_kernels.msolve_fma_fits(
+                           pad_like.block, tl, tu, itemsize))
         return cls(fl, fu, inv_d, terms, fused="series")
 
     def msolve(self, f: torch.Tensor) -> torch.Tensor:
+        if self.fused == "mono":
+            return self.nl.matvec(f)
         if self.fused == "kernel":
             op = self.nl
             return const_series_msolve_padded(
@@ -230,6 +250,40 @@ class NeumannILUPreconditioner:
             term = -self.nu.matvec(term)
             x = x + term
         return x
+
+    def msolve_fma(self, a, c1, b, c2=None, c=None):
+        """``(p, M⁻¹ p)`` with ``p = a + c1·(b + c2·c)`` (or ``a + c1·b``
+        without ``c``): the loop's BLAS1 update folded into one launch of
+        kernel B5 where it takes the "kernel" layout (:attr:`fma_fits`),
+        else the combination and :meth:`msolve`, as in the JAX package.
+        ``c1``/``c2`` are the loop's 0-d device tensors."""
+        if self.fused == "kernel" and self.fma_fits:
+            op = self.nl
+            return const_series_msolve_fma_padded(
+                a, c1, b, c2, c, self.inv_d, self.gap_ext, op.strided_terms,
+                self.nu.strided_terms, op.np_true, op.block, op.sub)
+        p = fma_combine(a, c1, b, c2, c)
+        return p, self.msolve(p)
+
+
+def _mono_operator(fl, fu, diag, pad_like):
+    """The whole M⁻¹ ≈ P_u·d*·P_l as one stencil sharing ``pad_like``'s
+    layout, d* the diagonal's value at the grid centre (the JAX package's
+    composition), or None where the composition leaves the gap or takes
+    more terms or a wider halo than kernel B1 takes."""
+    d_star = float(diag[(pad_like.r // 2) * pad_like.c_grid
+                        + pad_like.c_grid // 2])
+    try:
+        mt = compose_stencil_terms(
+            fu.terms, tuple((o, d, v / d_star) for (o, d, v) in fl.terms),
+            pad_like.c_grid, pad_like.stride)
+    except ValueError:
+        return None
+    st = strided_offsets(mt, pad_like.c_grid, pad_like.stride)
+    if len(mt) > _kernels.MAX_TERMS or max(abs(s[0]) for s in st) \
+            > pad_like.sub:
+        return None
+    return dataclasses.replace(pad_like, terms=mt, strided_terms=st)
 
 
 def _fused_series_operator(n_op, k: int):

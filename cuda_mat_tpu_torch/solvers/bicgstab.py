@@ -8,7 +8,8 @@ Three entry points mirror the reference's (pbicgstab.h:113-120):
 :func:`make_solver`, which pick the preconditioner from ``SolverConfig``
 (none, jacobi, ilu0, ilu0_neumann).  The operator is the gap-strided
 stencil (kernel B1) for a proven constant-coefficient grid stencil, else
-the banded DIA operator (kernel B3).
+the banded DIA operator (kernel B3); a padded device operator such as
+``StencilOperator2D`` (kernel B7) may stand in place of the matrix.
 
 Both loops keep the JAX package's update order exactly — the preconditioned
 one its flat, select-based body, the first-half convergence exit that does
@@ -35,8 +36,8 @@ from cuda_mat_tpu_torch.ops.stencil import (ConstStencilOperator,
                                             detect_const_stencil,
                                             plan_const_neumann_layout)
 from cuda_mat_tpu_torch.precond.preconditioners import (
-    JacobiPreconditioner, NeumannILUPreconditioner, PaddedPreconditioner,
-    make_preconditioner)
+    IdentityPreconditioner, JacobiPreconditioner, NeumannILUPreconditioner,
+    PaddedPreconditioner, make_preconditioner)
 from cuda_mat_tpu_torch.solvers.result import SolveResult, SolverStatus
 from cuda_mat_tpu_torch.utils.timing import device_sync
 
@@ -151,8 +152,9 @@ def precond_init(matvec, dot, x0, b, maxit: int, c: _Consts) -> _PState:
                               device=b.device), r, nrmr0)
 
 
-def precond_step(matvec, msolve, dot, st: _PState, i: int,
-                 c: _Consts) -> _PState:
+def precond_step(matvec, msolve, dot, st: _PState, i: int, c: _Consts,
+                 matvec_dots=None, msolve_fma=None,
+                 check_halves: bool = True) -> _PState:
     """One iteration of the preconditioned loop (reference gpu_pbicgstab,
     pbicgstab.cu:83-150): two M-solve + SpMV half-steps with a convergence
     check after each.  ``i`` is the host's copy of ``st.i``, used to place
@@ -161,7 +163,16 @@ def precond_step(matvec, msolve, dot, st: _PState, i: int,
     Flat body: the reference's two data-dependent branches (the i==0 p-init
     and the first-half exit) are selects around unconditionally executed
     compute, and every divisor is select-guarded so the dead half-iteration
-    after a first-half exit can never make NaN or Inf."""
+    after a first-half exit can never make NaN or Inf.
+
+    The JAX package's opt-in variants: ``matvec_dots(x, ws, with_self)``
+    takes each matvec's dots with it (kernel B6); ``msolve_fma(a, c1, b,
+    c2, c)`` folds the p-update ``r + β(p − ωv)`` and the r1-production
+    ``r − αv`` into the msolve (kernel B5) — the same values, since
+    ``x + (−a)·y`` rounds as ``x − a·y``; ``check_halves=False`` drops the
+    first-half check (its dot, sqrt, compare and selects), so convergence
+    is tested after whole iterations only and the first-half history slots
+    stay −1."""
     one = c.one
     rhop = st.rho
     rho = dot(st.rw, st.r)
@@ -169,40 +180,75 @@ def precond_step(matvec, msolve, dot, st: _PState, i: int,
     beta = torch.where(first, c.zero,
                        (rho / torch.where(first, one, rhop))
                        * (st.alpha / st.omega))
-    p = st.r + beta * (st.p - st.omega * st.v)
-    pw = msolve(p)
-    v = matvec(pw)
-    alpha = rho / dot(st.rw, v)
-    r1 = st.r - alpha * v
+    if msolve_fma is None:
+        p = st.r + beta * (st.p - st.omega * st.v)
+        pw = msolve(p)
+    else:
+        p, pw = msolve_fma(st.r, beta, st.p, -st.omega, st.v)
+    if matvec_dots is None:
+        v = matvec(pw)
+        den_a = dot(st.rw, v)
+    else:
+        v, parts = matvec_dots(pw, (st.rw,))
+        den_a = parts[0]
+    alpha = rho / den_a
+    if msolve_fma is None:
+        r1 = st.r - alpha * v
+    else:
+        r1, s = msolve_fma(st.r, -alpha, v)
     x1 = st.x + alpha * pw
-    nrmr1 = torch.sqrt(dot(r1, r1))
-    conv1 = nrmr1 < c.tol * st.nrmr0
-    s = msolve(r1)
-    t = matvec(s)
-    num_o = dot(t, r1)
-    den_o = dot(t, t)
-    omega_c = torch.where(conv1, one, num_o) / torch.where(conv1, one, den_o)
-    omega = torch.where(conv1, st.omega, omega_c)
-    x2 = torch.where(conv1, x1, x1 + omega_c * s)
-    r2 = torch.where(conv1, r1, r1 - omega_c * t)
-    nrmr2 = torch.where(conv1, nrmr1, torch.sqrt(dot(r2, r2)))
-    conv2 = (~conv1) & (nrmr2 < c.tol * st.nrmr0)
-    # the reference's preconditioned loop has no NaN guard and would spin
-    # to maxit on a float breakdown — surface BREAKDOWN instead
-    broke = (~conv1) & (~conv2) & (torch.isnan(nrmr2) | torch.isnan(alpha))
-    status = torch.where(conv1 | conv2, c.converged,
-                         torch.where(broke, c.breakdown, c.running))
-    i_next = torch.where(conv1, st.i, st.i + 1)
-    st.hist[2 * i:2 * i + 2] = torch.stack([nrmr1,
-                                            torch.where(conv1, -one, nrmr2)])
+    if check_halves:
+        nrmr1 = torch.sqrt(dot(r1, r1))
+        conv1 = nrmr1 < c.tol * st.nrmr0
+    if msolve_fma is None:
+        s = msolve(r1)
+    if matvec_dots is None:
+        t = matvec(s)
+        num_o = dot(t, r1)
+        den_o = dot(t, t)
+    else:
+        t, parts = matvec_dots(s, (r1,), with_self=True)
+        num_o, den_o = parts[0], parts[1]
+    if check_halves:
+        omega_c = (torch.where(conv1, one, num_o)
+                   / torch.where(conv1, one, den_o))
+        omega = torch.where(conv1, st.omega, omega_c)
+        x2 = torch.where(conv1, x1, x1 + omega_c * s)
+        r2 = torch.where(conv1, r1, r1 - omega_c * t)
+        nrmr2 = torch.where(conv1, nrmr1, torch.sqrt(dot(r2, r2)))
+        conv2 = (~conv1) & (nrmr2 < c.tol * st.nrmr0)
+        # the reference's preconditioned loop has no NaN guard and would
+        # spin to maxit on a float breakdown — surface BREAKDOWN instead
+        broke = (~conv1) & (~conv2) & (torch.isnan(nrmr2)
+                                       | torch.isnan(alpha))
+        status = torch.where(conv1 | conv2, c.converged,
+                             torch.where(broke, c.breakdown, c.running))
+        i_next = torch.where(conv1, st.i, st.i + 1)
+        pair = torch.stack([nrmr1, torch.where(conv1, -one, nrmr2)])
+    else:
+        # ω is not guarded here, as in the JAX package (ROADMAP C2)
+        omega = num_o / den_o
+        x2 = x1 + omega * s
+        r2 = r1 - omega * t
+        nrmr2 = torch.sqrt(dot(r2, r2))
+        conv2 = nrmr2 < c.tol * st.nrmr0
+        broke = (~conv2) & (torch.isnan(nrmr2) | torch.isnan(alpha))
+        status = torch.where(conv2, c.converged,
+                             torch.where(broke, c.breakdown, c.running))
+        i_next = st.i + 1
+        pair = torch.stack([-one, nrmr2])
+    st.hist[2 * i:2 * i + 2] = pair
     return _PState(i_next, status, x2, r2, p, v, rho, alpha, omega, nrmr2,
                    st.hist, st.rw, st.nrmr0)
 
 
-def precond_core(matvec, msolve, dot, x0, b, tol: float, maxit: int):
+def precond_core(matvec, msolve, dot, x0, b, tol: float, maxit: int,
+                 matvec_dots=None, msolve_fma=None,
+                 check_halves: bool = True):
     """Preconditioned BiCGSTAB loop (reference gpu_pbicgstab,
-    pbicgstab.cu:45-154), generic over ``matvec``/``msolve``/``dot``.
-    Returns ``(x, status, iters, nrmr, nrmr0, hist)`` as device tensors.
+    pbicgstab.cu:45-154), generic over ``matvec``/``msolve``/``dot``, with
+    the opt-in variants of :func:`precond_step`.  Returns ``(x, status,
+    iters, nrmr, nrmr0, hist)`` as device tensors.
 
     The host polls ``status`` and ``i`` once per iteration; that read waits
     for the iteration to finish, so the device idles while the host queues
@@ -211,7 +257,8 @@ def precond_core(matvec, msolve, dot, x0, b, tol: float, maxit: int):
     st = precond_init(matvec, dot, x0, b, maxit, c)
     status, i = _RUNNING, 0
     while i < maxit and status == _RUNNING:
-        st = precond_step(matvec, msolve, dot, st, i, c)
+        st = precond_step(matvec, msolve, dot, st, i, c, matvec_dots,
+                          msolve_fma, check_halves)
         status, i = torch.stack([st.status, st.i]).tolist()
     return st.x, st.status, st.i, st.nrmr, st.nrmr0, st.hist
 
@@ -239,15 +286,12 @@ def _dtype_of(config: SolverConfig) -> torch.dtype:
     return _DTYPES[config.dtype]
 
 
-def _check_precond_flags(config: SolverConfig) -> None:
-    """The preconditioned loop's opt-in variants (the h-form loop reads
-    none of these flags)."""
-    if config.fused_dots:
-        raise _not_ported("fused_dots", "A9 / B6")
-    if config.fuse_blas1:
-        raise _not_ported("fuse_blas1", "A9 / B5")
-    if not config.check_halves:
-        raise _not_ported("check_halves=False", "A9")
+def _is_device_operator(a) -> bool:
+    """A padded device operator (such as
+    :class:`~cuda_mat_tpu_torch.ops.stencil2d.StencilOperator2D`) passed in
+    place of a matrix."""
+    return not isinstance(a, CSRMatrix) and all(
+        hasattr(a, k) for k in ("pad_vec", "unpad_vec", "matvec"))
 
 
 def _as_op(a, dtype: torch.dtype, device, format: Optional[str] = None):
@@ -256,9 +300,21 @@ def _as_op(a, dtype: torch.dtype, device, format: Optional[str] = None):
     matrix-free (kernel B1) unless ``format="pallas_dia"``; any other
     banded matrix — at most 16 diagonals, nnz ≥ 0.4·ndiag·n, or any band
     under a forced ``format`` — as banded DIA (kernel B3).  The unpadded
-    operators that take the rest are not ported yet."""
+    operators that take the rest are not ported yet.
+
+    A device operator is taken as it is, in its own dtype and on its own
+    device (``format`` is not read, as in the JAX package); a ``device``
+    that names another device raises ValueError."""
+    if _is_device_operator(a):
+        own = torch.device(a.device)
+        same_index = (own.index is None or device.index is None
+                      or own.index == device.index)
+        if own.type != device.type or not same_index:
+            raise ValueError(f"the operator lives on {own}, not on {device}")
+        return a
     if not isinstance(a, CSRMatrix):
-        raise TypeError(f"expected a CSRMatrix, got {type(a).__name__}")
+        raise TypeError(f"expected a CSRMatrix or a padded device operator,"
+                        f" got {type(a).__name__}")
     if a.n != a.m:
         raise ValueError(
             f"square matrix is expected, got {a.n}x{a.m}")  # cf. example.cpp:257-260
@@ -307,6 +363,10 @@ def _build_setup(a, op, dt: torch.dtype, config: SolverConfig):
     kind = config.precond
     if kind in _HFORM:
         return op, None
+    if not isinstance(a, CSRMatrix):
+        # a device operator: any preconditioner request runs the identity,
+        # as the JAX package's _build_setup does (ROADMAP C7)
+        return op, IdentityPreconditioner()
     if kind == "ilu0":
         return op, PaddedPreconditioner(make_preconditioner(
             "ilu0", a, block=config.trisolve_block, dtype=dt,
@@ -321,7 +381,8 @@ def _build_setup(a, op, dt: torch.dtype, config: SolverConfig):
         raise ValueError(f"unknown preconditioner {kind!r}")
     if config.neumann_const_factors and isinstance(op, ConstStencilOperator):
         plan = plan_const_neumann_layout(op.terms, config.neumann_terms,
-                                         op.c_grid, op.stride)
+                                         op.c_grid, op.stride,
+                                         fuse_blas1=config.fuse_blas1)
         if plan is not None and (plan[0] > op.sub or op.block > plan[1]):
             # widen the halo sub-block to the polynomials' offsets and cap
             # the block as the JAX package does; a layout that cannot be
@@ -356,7 +417,8 @@ def host_matvec_f64(a: CSRMatrix, x) -> np.ndarray:
 
 def _attach_true_residual(res: SolveResult, a, b, config: SolverConfig,
                           d=None) -> SolveResult:
-    if config.true_residual:
+    # a device operator has no host matrix: residual_true stays None
+    if config.true_residual and isinstance(a, CSRMatrix):
         bb = np.asarray(b, np.float64)
         if d is not None:                     # split form A = A0 + diag(d)
             bb = bb - np.asarray(d, np.float64) * np.asarray(res.x,
@@ -420,8 +482,17 @@ class PreparedSolver:
             out = hform_core(self.op.matvec, torch.dot, x0d, bd, cfg.tol,
                              cfg.breakdown_tol, cfg.maxit)
         else:
+            # the opt-in variants engage where the operator and the
+            # preconditioner offer them (the JAX package's _precond_solve)
+            mvd = getattr(self.op, "matvec_dots", None) \
+                if cfg.fused_dots else None
+            mfma = self.pre.msolve_fma \
+                if cfg.fuse_blas1 and getattr(self.pre, "fma_fits", False) \
+                else None
             out = precond_core(self.op.matvec, self.pre.msolve, torch.dot,
-                               x0d, bd, cfg.tol, cfg.maxit)
+                               x0d, bd, cfg.tol, cfg.maxit, matvec_dots=mvd,
+                               msolve_fma=mfma,
+                               check_halves=cfg.check_halves)
         device_sync(self.device)
         t2 = time.perf_counter()
         return _attach_true_residual(
@@ -440,8 +511,6 @@ def make_solver(a, config: SolverConfig = DEFAULT_CONFIG,
     dt = _dtype_of(config)
     if config.reorder not in (None, "none"):
         raise _not_ported(f"reorder={config.reorder!r}", "A8")
-    if config.precond not in _HFORM:
-        _check_precond_flags(config)
     op = _as_op(a, dt, torch.device(device), format)
     op, pre = _build_setup(a, op, dt, config)
     device_sync(op.device)

@@ -3,9 +3,10 @@
 On the CPU a front end runs its plain twin and never counts a launch.  Any
 other tensor goes to the kernel or raises: a failed build is never hidden
 by a fallback.  The ``gpu`` tests compare each CUDA kernel with its twin
-and skip without a card: the stencil kernels B1/B2 and the banded DIA SpMV
-B3 bit for bit (they round every product and sum on its own, as the twins
-do), the banded trisolve
+and skip without a card: the stencil kernels B1/B2/B5/B6, the 2-D stencil
+B7 and the banded DIA SpMV B3 bit for bit (they round every product and
+sum on its own, as the twins do; B6's dots are the twin's tree), the
+banded trisolve
 kernels B4a/B4b to 1e-12 (f64) and 1e-5 (f32) of max|twin| (they sum in
 another order than the twin's torch.matmul).
 """
@@ -19,6 +20,7 @@ from cuda_mat_tpu_torch.ops import _kernels
 from cuda_mat_tpu_torch.ops import banded_trisolve as tbt
 from cuda_mat_tpu_torch.ops import dia_spmv as tds
 from cuda_mat_tpu_torch.ops import stencil as tst
+from cuda_mat_tpu_torch.ops import stencil2d as t2d
 from cuda_mat_tpu_torch.precond.preconditioners import (ILU0Preconditioner,
                                                         NeumannILUPreconditioner)
 
@@ -183,6 +185,96 @@ def test_msolve_fit_check():
     assert not _kernels.msolve_fits(op.block, tl, tu + ((40000, 1.0),), 8)
 
 
+def _fusion_args(op, pre, seed=2):
+    """Three padded vectors and the B5 layout arguments of ``pre``."""
+    rng = np.random.default_rng(seed)
+    vecs = [op.pad_vec(rng.standard_normal(op.n)) for _ in range(3)]
+    layout = (pre.inv_d, pre.gap_ext, pre.nl.strided_terms,
+              pre.nu.strided_terms, op.np_true, op.block, op.sub)
+    return vecs, layout
+
+
+def test_fusion_front_ends_on_cpu_run_the_twins_and_count_nothing():
+    _, op, pre = _setup()
+    assert pre.fma_fits
+    (a, b, c), layout = _fusion_args(op, pre)
+    tst.reset_launch_counts()
+    c1, c2 = torch.tensor(0.5, dtype=a.dtype), torch.tensor(-2.0,
+                                                            dtype=a.dtype)
+    for cc, c2c in ((c, c2), (None, None)):
+        p, y = tst.const_series_msolve_fma_padded(a, c1, b, c2c, cc, *layout)
+        pp, yp = tst.const_series_msolve_fma_padded_plain(a, c1, b, c2c, cc,
+                                                          *layout)
+        assert torch.equal(p, pp) and torch.equal(y, yp)
+    y, d = op.matvec_dots(a, (b,), with_self=True)
+    yp, dp = tst.const_stencil_spmv_dots_padded_plain(
+        a, op.gapmask, (b,), op.strided_terms, op.np_true, op.block, op.sub,
+        with_self=True)
+    assert torch.equal(y, yp) and torch.equal(d, dp)
+    op2 = t2d.StencilOperator2D.laplacian(20, 50, torch.float64, tr=8, tc=32,
+                                          device="cpu")
+    t2d.reset_launch_counts()
+    x2 = op2.pad_vec(np.ones(op2.n))
+    assert torch.equal(op2.matvec(x2), t2d.stencil_spmv_padded_plain(
+        op2.coeffs, x2, op2.offsets, 8, 32, op2.rp, op2.cp, 20, 50))
+    assert tst.const_series_msolve_fma_padded.launches == 0
+    assert tst.const_stencil_spmv_dots_padded.launches == 0
+    assert t2d.stencil_spmv_padded.launches == 0
+
+
+def test_fusion_missing_build_raises_and_never_falls_back(monkeypatch):
+    _, op, pre = _setup()
+
+    def no_build():
+        raise RuntimeError("kernel build failed")
+
+    def twin_called(*a, **k):
+        raise AssertionError("fell back to the plain twin")
+
+    monkeypatch.setattr(_kernels, "library", no_build)
+    monkeypatch.setattr(_kernels, "stencil2d_library", no_build)
+    for name in ("const_series_msolve_fma_padded_plain",
+                 "const_stencil_spmv_dots_padded_plain"):
+        monkeypatch.setattr(tst, name, twin_called)
+    monkeypatch.setattr(t2d, "stencil_spmv_padded_plain", twin_called)
+    tst.reset_launch_counts()
+    t2d.reset_launch_counts()
+    meta = torch.empty(op.npad + 2 * op.block, dtype=torch.float64,
+                       device="meta")
+    one = torch.empty((), dtype=torch.float64, device="meta")
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tst.const_series_msolve_fma_padded(
+            meta, one, meta, one, meta, meta, pre.gap_ext.to("meta"),
+            pre.nl.strided_terms, pre.nu.strided_terms, op.np_true, op.block,
+            op.sub)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tst.const_stencil_spmv_dots_padded(
+            meta, op.gapmask.to("meta"), (meta,), op.strided_terms,
+            op.np_true, op.block, op.sub, with_self=True)
+    op2 = t2d.StencilOperator2D.laplacian(20, 50, torch.float64, tr=8, tc=32,
+                                          device="meta")
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        op2.matvec(torch.empty((op2.rp + 16) * (op2.cp + 64),
+                               dtype=torch.float64, device="meta"))
+    assert tst.const_series_msolve_fma_padded.launches == 0
+    assert tst.const_stencil_spmv_dots_padded.launches == 0
+    assert t2d.stencil_spmv_padded.launches == 0
+
+
+def test_msolve_fma_fit_check():
+    """Kernel B5 takes a layout only where B2 does and its shared memory
+    also holds the combined vector over P_l's window."""
+    _, op, pre = _setup()
+    tl, tu = pre.nl.strided_terms, pre.nu.strided_terms
+    assert _kernels.msolve_fma_fits(op.block, tl, tu, 8)
+    assert not _kernels.msolve_fma_fits(op.block, tl, tu + ((op.block, 1.0),),
+                                        8)
+    # a halo whose u tile still fits B2 but not B5's window beside it
+    wide = tu + ((9000, 1.0),)
+    assert _kernels.msolve_fits(1 << 17, tl, wide, 8)
+    assert not _kernels.msolve_fma_fits(1 << 17, tl, wide, 8)
+
+
 @pytest.mark.gpu
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card")
@@ -261,3 +353,61 @@ def test_dia_kernel_equals_twin_on_card(dtype):
         assert torch.count_nonzero(y[:op.block]) == 0
         assert torch.count_nonzero(y[op.block + op.n:]) == 0
     assert tds.dia_spmv_block_padded.launches == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fusion_kernels_equal_twins_on_card(dtype):
+    a, op, pre = _setup(100, 100, 4, dtype, "cuda")
+    assert pre.fused == "kernel" and pre.fma_fits
+    (av, bv, cv), layout = _fusion_args(op, pre)
+    tst.reset_launch_counts()
+    pads = op.pad_vec(np.ones(a.n)) == 0
+    for c1, c2 in [(0.73, -1.21), (-0.4, 0.0), (0.0, 5.0)]:
+        s1 = torch.tensor(c1, dtype=dtype, device="cuda")
+        s2 = torch.tensor(c2, dtype=dtype, device="cuda")
+        for cc, c2c in ((cv, s2), (None, None)):
+            torch.full_like(av, float("nan"))
+            torch.full_like(av, float("nan"))
+            p, y = tst.const_series_msolve_fma_padded(av, s1, bv, c2c, cc,
+                                                      *layout)
+            pp, yp = tst.const_series_msolve_fma_padded_plain(
+                av, s1, bv, c2c, cc, *layout)
+            torch.cuda.synchronize()
+            assert torch.equal(p, pp) and torch.equal(y, yp)
+            assert not p[pads].any() and not y[pads].any()
+    assert tst.const_series_msolve_fma_padded.launches == 6
+    for ws, with_self in (((bv,), True), ((bv,), False)):
+        torch.full_like(av, float("nan"))
+        y, d = op.matvec_dots(av, ws, with_self=with_self)
+        y2, d2 = op.matvec_dots(av, ws, with_self=with_self)
+        yp, dp = tst.const_stencil_spmv_dots_padded_plain(
+            av, op.gapmask, ws, op.strided_terms, op.np_true, op.block,
+            op.sub, with_self=with_self)
+        torch.cuda.synchronize()
+        assert torch.equal(y, yp) and torch.equal(d, dp)
+        assert torch.equal(y, op.matvec(av))
+        assert torch.equal(y, y2) and torch.equal(d, d2)
+    assert tst.const_stencil_spmv_dots_padded.launches == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("constant", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil2d_kernel_equals_twin_on_card(dtype, constant):
+    t2d.reset_launch_counts()
+    for r, c, tr, tc in [(30, 30, 16, 16), (32, 32, 16, 16), (20, 50, 8, 32),
+                         (300, 700, 256, 512)]:
+        op = t2d.StencilOperator2D.laplacian(r, c, dtype, tr=tr, tc=tc,
+                                             constant=constant, device="cuda")
+        x = op.pad_vec(np.random.default_rng(1).standard_normal(op.n))
+        torch.full_like(x, float("nan"))
+        y = op.matvec(x)
+        torch.cuda.synchronize()
+        assert torch.equal(y, t2d.stencil_spmv_padded_plain(
+            op.coeffs, x, op.offsets, tr, tc, op.rp, op.cp, r, c))
+    assert t2d.stencil_spmv_padded.launches == 4

@@ -85,10 +85,8 @@ def test_refined_reaches_1e6(name):
 def test_unported_configs_raise():
     a = tprob.grid_laplacian(8, 16)
     base = ct.SolverConfig(precond="ilu0_neumann")
-    for cfg in (base.replace(fuse_blas1=True), base.replace(fused_dots=True),
-                base.replace(check_halves=False), base.replace(reorder="rcm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ct.make_solver(a, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ct.make_solver(a, base.replace(reorder="rcm"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ct.make_solver(a, base, format="ell", device="cpu")
     # a diagonal plus an anti-diagonal: 65 distinct diagonals, no band
@@ -99,3 +97,17 @@ def test_unported_configs_raise():
         np.concatenate([np.full(n, 4.0), np.ones(n)])))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ct.make_solver(wide, base, device="cpu")
+
+
+@pytest.mark.parametrize("flag", [{"fuse_blas1": True},
+                                  {"fused_dots": True},
+                                  {"check_halves": False}])
+def test_opt_in_flags_build_and_solve(flag):
+    """The loop's opt-in variants, which once raised here, build and solve
+    (their parity with the JAX package: test_torch_fusions.py)."""
+    a = tprob.grid_laplacian(8, 16)
+    cfg = ct.SolverConfig(precond="ilu0_neumann", **flag)
+    b = np.random.default_rng(0).uniform(1.0, 5.0, a.n)
+    r = ct.make_solver(a, cfg, device="cpu").solve(b)
+    assert r.status == ct.SolverStatus.CONVERGED
+    assert r.residual_true / np.linalg.norm(b) < 1e-5
