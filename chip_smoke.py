@@ -22,8 +22,11 @@ script exits non-zero:
    show that B1 and B2 carried every matvec and msolve; then the cost of
    the solver's per-iteration host poll;
 5. banded trisolve parity: B4a and B4b (forward and backward) against their
-   twins in f32 and f64 at the mat10000 layout and the 1M-row layout,
-   within 1e-5 (f32) / 1e-12 (f64) of max|twin|; times and bounds as in 3;
+   sequential twins and the chunked plain version of their algorithm in
+   f32 and f64 at the mat10000 layout and the 1M-row layout, within 1e-5
+   (f32) / 1e-12 (f64) of max|twin|, two launches bitwise equal; the plans
+   (m, P); times and bounds as in 3, the chunked design's byte floor and
+   each of B4b's three launches timed alone;
 6. main path 2, the reference's default solve: exact ILU(0) BiCGSTAB
    (bicgstab_lu_precond) on data/mat900.mtx and data/mat10000.mtx on the
    card and on the CPU, in f64 and f32, against the goldens; refinement of
@@ -319,46 +322,71 @@ def band_sides(csr):
 
 
 def trisolve_parity(tri, csr, tag, stats, timed):
-    """B4a and B4b (forward, backward) against their twins on ``tri``'s
-    arrays (the factor of ``csr``), within TRISOLVE_BOUND of max|twin|."""
+    """B4a and B4b (forward, backward) against their sequential twins and
+    against the chunked plain version of the kernel's algorithm on
+    ``tri``'s arrays and plans (the factor of ``csr``), within
+    TRISOLVE_BOUND of max|twin|; padded rows zero; two launches equal bit
+    for bit.  ``timed``: kernel and twin times, the bound, the design's own
+    byte floor and each phase's time."""
     dtype = tri.wt_lo.dtype
     f = tri._pad(torch.from_numpy(
         np.random.default_rng(1).standard_normal(tri.n)).to(DEVICE))
     lo, up = (tri.wt_lo, tri.wct_lo), (tri.wt_up, tri.wct_up)
+    plans = (tri.plan_lo, tri.plan_up)
+    print(f"{tag} {str(dtype)[6:]} plans: nb {tri.wt_lo.shape[0]}, B"
+          f" {tri.block}, bw {plans[0].bw}/{plans[1].bw}, triangles"
+          f" {plans[0].tri}/{plans[1].tri}, m {plans[0].m}, P"
+          f" {plans[0].chunks}", flush=True)
+
+    def chunked_msolve():
+        y = bt.banded_sweep_chunked_plain(f, *lo, plans[0], True)
+        return bt.banded_sweep_chunked_plain(y, *up, plans[1], False)
+
     cases = [
         ("banded_fused_msolve", "",
-         lambda: bt.fused_msolve_padded(f, *lo, *up),
-         lambda: bt.fused_msolve_padded_plain(f, *lo, *up)),
+         lambda: bt.fused_msolve_padded(f, *lo, *up, plans),
+         lambda: bt.fused_msolve_padded_plain(f, *lo, *up), chunked_msolve),
         ("banded_sweep", " forward",
-         lambda: bt.banded_sweep_padded(f, *lo, True),
-         lambda: bt.banded_sweep_padded_plain(f, *lo, True)),
+         lambda: bt.banded_sweep_padded(f, *lo, True, plans[0]),
+         lambda: bt.banded_sweep_padded_plain(f, *lo, True),
+         lambda: bt.banded_sweep_chunked_plain(f, *lo, plans[0], True)),
         ("banded_sweep", " backward",
-         lambda: bt.banded_sweep_padded(f, *up, False),
-         lambda: bt.banded_sweep_padded_plain(f, *up, False)),
+         lambda: bt.banded_sweep_padded(f, *up, False, plans[1]),
+         lambda: bt.banded_sweep_padded_plain(f, *up, False),
+         lambda: bt.banded_sweep_chunked_plain(f, *up, plans[1], False)),
     ]
-    for name, what, kern, plain in cases:
+    for name, what, kern, plain, chunked in cases:
         poison_allocator(f)
         yk = kern()
-        yp = plain()
+        poison_allocator(f)
+        yk2 = kern()
+        yp, yc = plain(), chunked()
         torch.cuda.synchronize()
         if not torch.isfinite(yk).all():
             raise RuntimeError(f"{tag} {name}{what}: non-finite kernel output")
         if torch.count_nonzero(yk[tri.n:]):
             raise RuntimeError(f"{tag} {name}{what}: padded rows not zero")
+        if not torch.equal(yk, yk2):
+            raise RuntimeError(f"{tag} {name}{what}: two launches differ")
+        top = float(yp.abs().max())
         err = float((yk - yp).abs().max())
-        rel = err / float(yp.abs().max())
+        rel, rel_c = err / top, float((yk - yc).abs().max()) / top
         line = (f"{tag} {str(dtype)[6:]} {name}{what}: max|kernel - twin| ="
-                f" {err!r} ({rel!r} of max|twin|)")
+                f" {err!r} ({rel!r} of max|twin|), against the chunked plain"
+                f" version {rel_c!r}; two launches bitwise equal")
         if timed and what != " backward":
             ms = cuda_ms(kern)
             pms = cuda_ms(plain, reps=5)
-            stats[name].update(ms=ms, plain_ms=pms)
-            line += f", kernel {ms:.4f} ms, twin {pms:.4f} ms (median of 5)"
+            cms = cuda_ms(chunked, reps=5)
+            stats[name].update(ms=ms, plain_ms=pms, chunked_plain_ms=cms)
+            line += (f", kernel {ms:.4f} ms, twin {pms:.4f} ms (median of 5),"
+                     f" chunked plain {cms:.4f} ms")
         print(line, flush=True)
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-        if not rel <= TRISOLVE_BOUND[dtype]:
+        if not max(rel, rel_c) <= TRISOLVE_BOUND[dtype]:
             raise RuntimeError(f"{tag} {name}{what}: kernel differs from its"
-                               f" twin by {rel!r} of max|twin| (bound"
+                               f" twin by {rel!r} and from the chunked plain"
+                               f" version by {rel_c!r} of max|twin| (bound"
                                f" {TRISOLVE_BOUND[dtype]})")
     if timed:
         nb, blk, item = tri.wt_lo.shape[0], tri.block, f.element_size()
@@ -376,15 +404,45 @@ def trisolve_parity(tri, csr, tag, stats, timed):
         # the entries of this run's arrays that are not zero
         nnz = [int(torch.count_nonzero(w)) for w in (tri.wt_lo, tri.wct_lo,
                                                       tri.wt_up, tri.wct_up)]
+        # and the chunked design's own floor: Wt's triangle once, the carry
+        # rows twice (phases 1 and 3), T once, f read, y written, g written
+        # and read again
+        floor = [(nb * (blk * (blk + 1) // 2 + 2 * p.bw * blk)
+                  + p.chunks * p.bw * p.bw) * item + 4 * vec for p in plans]
+        floor_ms = [b / HBM_BYTES_PER_S * 1e3 for b in floor]
+        stats["banded_fused_msolve"]["design_floor_ms"] = sum(floor_ms)
+        stats["banded_sweep"]["design_floor_ms"] = floor_ms[0]
         for k, arrays in (("banded_fused_msolve", 4), ("banded_sweep", 2)):
             dense_ms, nnz_ms = (
                 (entries * item + 2 * vec) / HBM_BYTES_PER_S * 1e3
                 for entries in (arrays * nb * blk * blk, sum(nnz[:arrays])))
             print(f"{tag} {k}: bound {stats[k]['bound_ms']:.4f} ms"
                   f" ({stats[k]['bound_by']}; structural nonzeros,"
-                  f" bandwidths {w_lo}/{w_up}); its {arrays} (nb, B, B)"
-                  f" arrays read whole: {dense_ms:.4f} ms; their nonzero"
-                  f" entries alone: {nnz_ms:.4f} ms", flush=True)
+                  f" bandwidths {w_lo}/{w_up}); the chunked design's byte"
+                  f" floor {stats[k]['design_floor_ms']:.4f} ms; its"
+                  f" {arrays} (nb, B, B) arrays read whole: {dense_ms:.4f}"
+                  f" ms; their nonzero entries alone: {nnz_ms:.4f} ms",
+                  flush=True)
+        phase_times(f, tri, tag, stats)
+
+
+def phase_times(f, tri, tag, stats):
+    """Each of B4b's three launches timed alone (CUDA events, median of
+    20), on the scratch a whole sweep filled, for both sweeps."""
+    out = {}
+    for fw, wt, wct, plan in ((True, tri.wt_lo, tri.wct_lo, tri.plan_lo),
+                              (False, tri.wt_up, tri.wct_up, tri.plan_up)):
+        scratch = _kernels.sweep_scratch(f, plan.chunks, plan.bw)
+        y = _kernels.banded_sweep(f, wt, wct, plan, fw, scratch=scratch)
+        key = "forward" if fw else "backward"
+        out[key] = [cuda_ms(lambda: _kernels.banded_sweep(
+            f, wt, wct, plan, fw, bit, y, scratch)) for bit in (1, 2, 4)]
+        print(f"{tag} {str(f.dtype)[6:]} banded_sweep {key} phases (1 all"
+              f" chunks from zero, 2 the carries, 3 the rerun): "
+              + ", ".join(f"{t:.4f}" for t in out[key]) + " ms", flush=True)
+    stats["banded_sweep"]["phase_ms"] = out["forward"]
+    stats["banded_fused_msolve"]["phase_ms"] = [
+        a + b for a, b in zip(out["forward"], out["backward"])]
 
 
 def trisolve_library(a, tri, stats):
@@ -1191,6 +1249,13 @@ def main():
               f" {ps1m.dt_setup:.3f} s; nb {tri.wt_lo.shape[0]}, B"
               f" {tri.block}, {4 * tri.wt_lo.nbytes / 1e9:.3f} GB of"
               f" block arrays", flush=True)
+        t0 = time.perf_counter()
+        for fw, wt, wct in ((True, tri.wt_lo, tri.wct_lo),
+                            (False, tri.wt_up, tri.wct_up)):
+            bt.sweep_plan(wt, wct, fw)
+        torch.cuda.synchronize()
+        print(f"1M-row f32 plans of both sweeps (part of dt_setup):"
+              f" {time.perf_counter() - t0:.4f} s", flush=True)
         trisolve_parity(tri, a1m, "1M layout", stats, timed=True)
         trisolve_library(a1m, tri, stats)
         ps1m64 = ct.make_solver(a1m, cfg1m.replace(dtype="float64"),

@@ -1,39 +1,59 @@
-// Hopper (sm_90a) kernels of the exact banded ILU(0) triangular solves.
+// Hopper (sm_90a) kernel of the exact banded ILU(0) triangular sweeps.
+//
+// Replaces two TPU kernels (cuda_mat_tpu/ops/pallas_trisolve.py:73, :149):
+//   B4b  _banded_sweep (:73 -> pallas_call :91, kernel body _sweep_kernel :46)
+//   B4a  _fused_msolve (:149 -> :170, _fused_kernel :110), which on Hopper is
+//        the forward sweep then the backward one, two calls of
+//        cmt_banded_sweep made by its front end (ops/banded_trisolve.py; the
+//        backward sweep needs all of y).
 //
 // One sweep over nb row blocks of B rows is the blocked recurrence
 //   y_b = f_b . Wt[b] - y_{b-1} . WCt[b]      (row vector times B x B)
-// (forward over b = 0..nb-1 for the unit-lower factor, backward over
-// b = nb-1..0 for the upper one, y_{-1} = y_{nb} = 0).  Wt and WCt are the
-// host-made arrays of ops/banded_trisolve.py, (nb, B, B) row-major, so
-// y[j] = sum_k f[k] * Wt[b][k][j]: thread j reading Wt[b][k][j] over k
-// walks rows, and a warp's 32 consecutive j read one contiguous segment.
+// (forward over b = 0..nb-1, backward over b = nb-1..0, y_{-1} = y_{nb} = 0).
+// Wt and WCt are the host-made (nb, B, B) row-major arrays, so column j of
+// y_b sums rows k of Wt[b] and WCt[b].  Only `bw` rows of WCt[b] can be
+// nonzero (the carry rows: B-bw..B-1 forward, 0..bw-1 backward), so y_b
+// depends on y_{b-1} only through its bw carry columns, its "tail"; and Wt[b]
+// is triangular (rows k <= j forward, k >= j backward) when `tri` says so.
+// The plan (ops/banded_trisolve.py: sweep_plan) reads bw and tri off the
+// arrays, so skipping the other rows is exact for any arrays.
 //
-// The TPU kernels (cuda_mat_tpu/ops/pallas_trisolve.py:46, :110) carry
-// y_{b-1} from one sequential grid step to the next.  Hopper blocks run in
-// no order, so each sweep is split where the recurrence allows it:
-//   (a) banded_gemv_kernel: g_b = f_b . Wt[b] for all b at once, one thread
-//       block per row block, over the whole card;
-//   (b) banded_chain_kernel: y_b = g_b - y_{b-1} . WCt[b], walked by ONE
-//       thread block in order, y_{b-1} in shared memory, in place over g.
-// These are the TPU kernel's two products and its subtraction; only the
-// order of the sums differs (each thread sums a slice of k with FMAs, the
-// slices are added in a fixed order), so a kernel and its plain twin agree
-// to rounding, deterministically, not bit for bit.
+// The TPU walked the blocks as one sequential grid.  Here the sweep is cut
+// into P chunks of m blocks in sweep order, and the recurrence, being
+// linear, is solved in three launches:
+//   1. chunk_walk_kernel (rerun 0), one thread block per chunk, all at once:
+//      g_b = f_b . Wt[b] (the triangle only) and y_b = g_b - tail . WCt[b]
+//      (the carry rows only) from a zero state entering the chunk; writes
+//      y (final for chunk 0), g, and the chunk's exit tail s^_c;
+//   2. chunk_carry_kernel, one thread block: the state entering each chunk,
+//      s_0 = 0, s_{c+1} = s^_c + s_c . T_c, with T_c (bw x bw) the product
+//      of -WCt[b][carry, carry] over chunk c's blocks, made once per factor;
+//   3. chunk_walk_kernel (rerun 1), one thread block per chunk c >= 1: the
+//      chain again from s_c over the stored g, writing y.
+// Nothing is cut off: every step uses every carry row, whatever T's size,
+// so the result is the sequential recurrence's to rounding.  The rows of
+// each column j are split over G row groups of threads (rows k = q mod G),
+// each summing its rows as four interleaved partial sums; the groups'
+// partials meet once per step in shared memory and are added in group
+// order.  Every sum runs in a fixed order, with no atomics: two launches
+// give equal bits, and the kernel agrees with its plain twins to rounding.
 //
-// Bound: device memory.  A sweep must read its two (nb, B, B) arrays once
-// (f32, B=128, 1M rows: 1.02 GB); the arithmetic is 2 flops per 4 or 8
-// bytes.  (a) streams Wt at the card's rate.  (b) is a chain of nb
-// dependent steps on one SM: it streams WCt at what one SM can pull, with
-// the next step's slice of WCt and of g loaded into registers while the
-// current step runs, and is the slow part (nb x the step latency).  Only
-// the last `bandwidth` rows of each WCt[b] are nonzero; skipping the rest,
-// and a chain spread over many SMs, are left for later work.
-//
-// B4a, the fused msolve U \ (L \ f), is the forward sweep then the backward
-// one, two calls of cmt_banded_sweep on one stream made by its front end
-// (ops/banded_trisolve.py; the backward (a) needs all of y).  The TPU fused
-// them into one launch to save its per-launch overhead and to keep y on
-// chip; here y lives in device memory.
+// Bounds, and what the design does about them:
+//   * bytes: a sweep must read Wt's triangle and WCt's carry rows once
+//     (f32, B=128, bw=100, 1M rows: 0.66 GB); this design reads the carry
+//     rows twice (phases 1 and 3) and T once, ~1.07 GB.  Every operand is
+//     streamed into a ring of 2-4 stages in shared memory, one item (a slab
+//     of rows) per stage, so the next items' bytes arrive while one is
+//     summed: a whole slab (WCt's carry rows, T_c) and its vector by one
+//     TMA bulk copy each, completing on the stage's mbarrier; Wt's
+//     triangle by 16-byte cp.async from every thread; where the layout is
+//     not 16-byte aligned, everything by cp.async one element at a time.
+//     P is about the SM count, so phases 1 and 3 pull on every SM at once.
+//   * serial depth: 2m + P dependent steps in place of nb (m = 60, P = 131
+//     at 1M rows on 132 SMs).  A step waits for its items, one barrier per
+//     item and one for the partial sums; up to 1024 threads (8 row groups
+//     at B = 128) share a step's arithmetic.  Phase 2, one block walking P
+//     steps, is the part that stays serial.
 //
 // Launchers are extern "C" for ctypes: they launch on the caller's stream,
 // never synchronise, allocate nothing, and return the first
@@ -41,13 +61,14 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kBadArgs = -1;
-constexpr int kMaxBlock = 1024;   // one thread per column j
-constexpr int kGemvThreads = 256;
-constexpr int kChainThreads = 1024;
-constexpr int kPrefetchBytes = 64;  // WCt bytes per thread loaded a step ahead
+constexpr int kMaxBlock = 1024;          // one thread per column j
+constexpr int kSmemBudget = 225 * 1024;  // of the 227 KB a block may use
+constexpr int kMaxStages = 4;
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -56,140 +77,513 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// Thread t of a kernel works on column j = t % B over the row slice
-// [k0, k1) of its group t / B; the groups' partial sums meet in shared
-// memory and are added in group order.
-struct Slice {
-  int j, grp, k0, k1;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// --- cp.async of 16 bytes, or of one element (unaligned layouts)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(smem)),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_addr(smem)),
+                 "l"(gmem), "n"(BYTES)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n (0..2) of this thread's copy groups are in flight.
+__device__ __forceinline__ void cp_wait(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+// --- TMA bulk copies completing on an mbarrier (16-byte aligned layouts)
+__device__ __forceinline__ void mbar_init(std::uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(std::uint64_t* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(std::uint64_t* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes,
+                                          std::uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One stage's worth of a walk: `rows` rows of width W starting at `mat`
+// (row k0 of its matrix), then `vlen` elements of `vec` stored after them.
+// kind 0: rows of Wt[b] (only the triangle `tri` needs is copied);
+// kind 1: carry rows of WCt[b] or of T_c.
+template <typename T>
+struct Item {
+  const T* mat;
+  const T* vec;
+  int rows, k0, vlen, kind, step;
+  long long b;
+  bool last;
 };
 
-__device__ __forceinline__ Slice slice_of(int B, int groups) {
-  const int per = (B + groups - 1) / groups;
-  Slice s;
-  s.j = threadIdx.x % B;
-  s.grp = threadIdx.x / B;
-  s.k0 = min(B, s.grp * per);
-  s.k1 = min(B, s.k0 + per);
+// Columns [c0, c1) of row k that an item copies: tri 1 needs columns >= k,
+// tri 2 columns <= k, 0 all; widened to multiples of E elements.
+template <int E>
+__device__ __forceinline__ void row_span(int k, int W, int skip, int* c0,
+                                         int* c1) {
+  *c0 = skip == 1 ? k / E * E : 0;
+  *c1 = skip == 2 ? min(W, (k / E + 1) * E) : W;
+}
+
+// Whether an item comes by one TMA bulk copy: a whole slab (WCt's carry
+// rows, T_c's rows, a Wt[b] that is not triangular) in a 16-byte aligned
+// layout.  A triangle of Wt[b] is many short row spans, which every thread
+// copies 16 bytes at a time with cp.async instead: one bulk copy per span
+// would be ~128 small copies from one warp.
+template <typename T, int E>
+__device__ __forceinline__ bool bulk_item(const Item<T>& it, int tri) {
+  return E > 1 && !(it.kind == 0 && tri != 0);
+}
+
+// Copy one item into a stage: by one bulk copy of the slab and one of the
+// vector, issued by thread 0 after announcing their bytes on `bar`; or by
+// every thread, E elements per cp.async (these form this thread's group
+// of the iteration).
+template <typename T, int E>
+__device__ __forceinline__ void load_item(const Item<T>& it, T* stage, int W,
+                                          int tri, std::uint64_t* bar) {
+  T* vs = stage + it.rows * W;
+  if (bulk_item<T, E>(it, tri)) {
+    if (threadIdx.x != 0) return;
+    mbar_expect(bar, (it.rows * W + it.vlen) *
+                         static_cast<unsigned>(sizeof(T)));
+    if (it.rows) bulk_copy(stage, it.mat, it.rows * W * sizeof(T), bar);
+    if (it.vlen) bulk_copy(vs, it.vec, it.vlen * sizeof(T), bar);
+    return;
+  }
+  const int skip = it.kind == 0 ? tri : 0;
+  const int cpr = W / E;
+  const int total = it.rows * cpr;
+  for (int q = threadIdx.x; q < total; q += blockDim.x) {
+    const int r = q / cpr, cc = (q - r * cpr) * E;
+    int c0, c1;
+    row_span<E>(it.k0 + r, W, skip, &c0, &c1);
+    if (cc >= c0 && cc < c1)
+      cp_async<E * sizeof(T)>(stage + r * W + cc,
+                              it.mat + static_cast<long long>(r) * W + cc);
+  }
+  for (int q = threadIdx.x * E; q < it.vlen; q += blockDim.x * E)
+    cp_async<E * sizeof(T)>(vs + q, it.vec + q);
+}
+
+// The ring: items 0..n-1 through S stages of `cap` elements; item i is
+// consumed while items i+1..i+S-1 load.  Every thread commits one cp.async
+// group per item (empty for a bulk item), so waiting for all but S-2
+// groups finds item i's copies done; a bulk item also waits on its stage's
+// mbarrier, whose phase parity `phases` tracks.  One barrier per item: it
+// makes item i visible to every thread and frees the stage item i-1 held.
+template <typename T, int E, class Describe, class Consume>
+__device__ __forceinline__ void run_ring(int n, int S, int cap, int W,
+                                         int tri, T* ring,
+                                         std::uint64_t* bars,
+                                         Describe describe, Consume consume) {
+  if (E > 1 && threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < n) load_item<T, E>(describe(i), ring + i * cap, W, tri, bars + i);
+    cp_commit();
+  }
+  unsigned phases = 0;
+  for (int i = 0; i < n; ++i) {
+    const Item<T> it = describe(i);
+    const int st = i % S;
+    cp_wait(S - 2);
+    if (bulk_item<T, E>(it, tri)) {
+      mbar_wait(bars + st, (phases >> st) & 1u);
+      phases ^= 1u << st;
+    }
+    __syncthreads();
+    const int nxt = i + S - 1;
+    if (nxt < n)
+      load_item<T, E>(describe(nxt), ring + (nxt % S) * cap, W, tri,
+                      bars + nxt % S);
+    cp_commit();
+    consume(it, ring + st * cap);
+  }
+  cp_wait(0);
+}
+
+// The stages' mbarriers, after `n` elements (rounded up to 16 bytes).
+template <typename T>
+__device__ __forceinline__ std::uint64_t* stage_bars(T* p, int n) {
+  constexpr int A = 16 / static_cast<int>(sizeof(T));
+  return reinterpret_cast<std::uint64_t*>(p + (n + A - 1) / A * A);
+}
+
+// The threads of a walk: G row groups of Bc = cols rounded up to a warp;
+// thread t sums column j = t % Bc over the rows k = q (mod G), q = t / Bc,
+// and the groups' partial sums meet once per step in shared memory.
+struct Lanes {
+  int j, q, G, Bc;
+};
+
+__device__ __forceinline__ Lanes lanes_of(int cols, int G) {
+  Lanes l;
+  l.Bc = (cols + 31) / 32 * 32;
+  l.G = G;
+  l.j = threadIdx.x % l.Bc;
+  l.q = threadIdx.x / l.Bc;
+  return l;
+}
+
+// a += sum over the rows k in [k0, k1) with k = q (mod G) of
+// v[k] * m[k * W]: four partial sums, added in a fixed order by sum4.
+template <typename T>
+__device__ __forceinline__ void dot_rows(T (&a)[4], const T* v, const T* m,
+                                         int W, int k0, int k1,
+                                         const Lanes& l) {
+  int k = k0 + ((l.q - k0 % l.G) + l.G) % l.G;
+  const int G = l.G;
+  for (; k + 3 * G < k1; k += 4 * G) {
+    a[0] = fma_t(v[k], m[k * W], a[0]);
+    a[1] = fma_t(v[k + G], m[(k + G) * W], a[1]);
+    a[2] = fma_t(v[k + 2 * G], m[(k + 2 * G) * W], a[2]);
+    a[3] = fma_t(v[k + 3 * G], m[(k + 3 * G) * W], a[3]);
+  }
+  for (; k < k1; k += G) a[0] = fma_t(v[k], m[k * W], a[0]);
+}
+
+template <typename T>
+__device__ __forceinline__ T sum4(T (&a)[4]) {
+  const T s = (a[0] + a[1]) + (a[2] + a[3]);
+  a[0] = a[1] = a[2] = a[3] = T(0);
   return s;
 }
 
-// Threads groups * B of a kernel: as many groups as fit `threads`, at
-// least one, at most B.
-int groups_for(int B, int threads) {
-  const int g = threads / B;
-  return g < 1 ? 1 : (g > B ? B : g);
+// Column j's total over the G groups' partials in red (G x Bc), in group
+// order; call after a barrier that follows every group's write.
+template <typename T>
+__device__ __forceinline__ T group_sum(const T* red, const Lanes& l) {
+  T s = red[l.j];
+  for (int q = 1; q < l.G; ++q) s += red[q * l.Bc + l.j];
+  return s;
 }
 
-// (a) g[b*B + j] = sum_k f[b*B + k] * Wt[b][k][j]; one thread block per b,
-// groups * B threads.  Shared memory: f_b, then groups x B partial sums.
-template <typename T>
-__global__ void banded_gemv_kernel(const T* __restrict__ f,
-                                   const T* __restrict__ wt,
-                                   T* __restrict__ g, int B, int groups) {
-  extern __shared__ unsigned char smem_raw[];
-  T* fs = reinterpret_cast<T*>(smem_raw);
-  T* red = fs + B;
-  const long long b = blockIdx.x;
-  for (int k = threadIdx.x; k < B; k += blockDim.x) fs[k] = f[b * B + k];
-  __syncthreads();
-  const Slice s = slice_of(B, groups);
-  const T* m = wt + b * B * B + s.j;
-  T acc = T(0);
-#pragma unroll 8
-  for (int k = s.k0; k < s.k1; ++k)
-    acc = fma_t(fs[k], m[static_cast<long long>(k) * B], acc);
-  red[s.grp * B + s.j] = acc;
-  __syncthreads();
-  if (s.grp == 0) {
-    T sum = red[s.j];
-    for (int q = 1; q < groups; ++q) sum += red[q * B + s.j];
-    g[b * B + s.j] = sum;
-  }
-}
-
-// (b) in place over y (holding g on entry): for s = 0..nb-1 in sweep order,
-// y_b = g_b - y_{b-1} . WCt[b].  One thread block of groups * B threads.
-// Shared memory: prev = y_{b-1}, then groups x B partial sums.  The first
-// P values of each thread's WCt slice (64 bytes, so that both register
-// copies fit a full block's register budget) and its entry of g are loaded
-// one step ahead.
-template <typename T>
-__global__ void __launch_bounds__(kChainThreads)
-banded_chain_kernel(const T* __restrict__ wct, T* __restrict__ y,
-                    long long nb, int B, int groups, int forward) {
-  constexpr int P = kPrefetchBytes / static_cast<int>(sizeof(T));
-  extern __shared__ unsigned char smem_raw[];
-  T* prev = reinterpret_cast<T*>(smem_raw);
-  T* red = prev + B;
-  const Slice sl = slice_of(B, groups);
-  const int npre = min(sl.k1 - sl.k0, P);
+// Phases 1 (rerun 0, chunk = blockIdx.x) and 3 (rerun 1, chunk =
+// blockIdx.x + 1).  Shared memory: the ring, the bw-long tail of the last
+// block, the partial sums of g and of the chain (G x Bc each), the stages'
+// mbarriers.  Two barriers at a step's last item (the item's, then the
+// partials'), one at every other.
+template <typename T, int E>
+__global__ void __launch_bounds__(kMaxBlock)
+chunk_walk_kernel(const T* __restrict__ f, const T* __restrict__ wt,
+                  const T* __restrict__ wct, T* __restrict__ g,
+                  T* __restrict__ y, T* __restrict__ shat,
+                  const T* __restrict__ s, long long nb, int B, int bw,
+                  int m, int forward, int tri, int R, int S, int cap,
+                  int rerun, int G) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Lanes l = lanes_of(B, G);
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* tail = ring + static_cast<long long>(S) * cap;
+  T* red_g = tail + (bw + 1) / 2 * 2;
+  T* red_c = red_g + G * l.Bc;
+  std::uint64_t* bars = stage_bars(red_c, G * l.Bc);
+  const long long chunk = blockIdx.x + rerun;
+  const long long s0 = chunk * m;
+  const int steps = static_cast<int>(min(static_cast<long long>(m), nb - s0));
   const long long bb = static_cast<long long>(B) * B;
-  for (int k = threadIdx.x; k < B; k += blockDim.x) prev[k] = T(0);
+  const int r0 = forward ? B - bw : 0;   // first carry row (and column)
+  const int n_w = rerun ? 0 : (B + R - 1) / R;
+  const int per = n_w + (bw + R - 1) / R;
+  const int j = l.j;
+  const int cj = j - r0;
+  const bool carry = j < B && cj >= 0 && cj < bw;
+  const int lo = tri == 2 ? j : 0;       // rows of Wt[b] column j reads
+  const int hi = tri == 1 ? j + 1 : B;
+  for (int c = threadIdx.x; c < bw; c += blockDim.x)
+    tail[c] = rerun ? s[chunk * bw + c] : T(0);
 
-  T nxt[P];
-  T g_nxt = T(0);
-  {
-    const long long b0 = forward ? 0 : nb - 1;
-    const T* m = wct + b0 * bb + static_cast<long long>(sl.k0) * B + sl.j;
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-      nxt[i] = i < npre ? m[static_cast<long long>(i) * B] : T(0);
-    if (sl.grp == 0) g_nxt = y[b0 * B + sl.j];
-  }
-  __syncthreads();
+  auto describe = [&](int i) {
+    Item<T> it;
+    it.step = i / per;
+    const int r = i - it.step * per;
+    const long long sw = s0 + it.step;
+    it.b = forward ? sw : nb - 1 - sw;
+    it.last = r == per - 1;
+    if (r < n_w) {
+      it.kind = 0;
+      it.k0 = r * R;
+      it.rows = min(R, B - it.k0);
+      it.mat = wt + it.b * bb + static_cast<long long>(it.k0) * B;
+      it.vec = f + it.b * B + it.k0;
+      it.vlen = it.rows;
+    } else {
+      it.kind = 1;
+      it.k0 = (r - n_w) * R;
+      it.rows = min(R, bw - it.k0);
+      it.mat = wct + it.b * bb + static_cast<long long>(r0 + it.k0) * B;
+      it.vec = rerun && r == 0 ? g + it.b * B : nullptr;
+      it.vlen = it.vec ? B : 0;
+    }
+    return it;
+  };
 
-  for (long long s = 0; s < nb; ++s) {
-    const long long b = forward ? s : nb - 1 - s;
-    T cur[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i) cur[i] = nxt[i];
-    const T g_cur = g_nxt;
-    if (s + 1 < nb) {
-      const long long bn = forward ? s + 1 : nb - 2 - s;
-      const T* m = wct + bn * bb + static_cast<long long>(sl.k0) * B + sl.j;
-#pragma unroll
-      for (int i = 0; i < P; ++i)
-        if (i < npre) nxt[i] = m[static_cast<long long>(i) * B];
-      if (sl.grp == 0) g_nxt = y[bn * B + sl.j];
+  T ga[4] = {T(0), T(0), T(0), T(0)};
+  T ca[4] = {T(0), T(0), T(0), T(0)};
+  T gj = T(0);
+  auto consume = [&](const Item<T>& it, const T* st) {
+    const T* v = st + it.rows * B;
+    if (j < B) {
+      if (it.kind == 0) {
+        // g_b[j] over the rows of this slab that column j's triangle holds
+        const int k0 = max(it.k0, lo), k1 = min(it.k0 + it.rows, hi);
+        if (k0 < k1)
+          dot_rows(ga, v - it.k0, st - it.k0 * B + j, B, k0, k1, l);
+      } else {
+        if (it.vlen && l.q == 0) gj = v[j];
+        dot_rows(ca, tail, st - it.k0 * B + j, B, it.k0, it.k0 + it.rows,
+                 l);
+      }
     }
-    T acc = T(0);
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-      if (i < npre) acc = fma_t(prev[sl.k0 + i], cur[i], acc);
-    const T* m = wct + b * bb + sl.j;
-    for (int k = sl.k0 + npre; k < sl.k1; ++k)
-      acc = fma_t(prev[k], m[static_cast<long long>(k) * B], acc);
-    red[sl.grp * B + sl.j] = acc;
-    __syncthreads();   // all reads of prev done, all partials written
-    if (sl.grp == 0) {
-      T sum = red[sl.j];
-      for (int q = 1; q < groups; ++q) sum += red[q * B + sl.j];
-      const T out = g_cur - sum;
-      y[b * B + sl.j] = out;
-      prev[sl.j] = out;
+    if (!it.last) return;
+    red_g[l.q * l.Bc + j] = sum4(ga);
+    red_c[l.q * l.Bc + j] = sum4(ca);
+    __syncthreads();   // every partial written, every read of tail done
+    if (l.q != 0 || j >= B) return;
+    if (!rerun) gj = group_sum(red_g, l);
+    const T out = gj - group_sum(red_c, l);
+    y[it.b * B + j] = out;
+    if (!rerun && chunk > 0) g[it.b * B + j] = gj;
+    if (carry) {
+      tail[cj] = out;
+      if (!rerun && it.step == steps - 1) shat[chunk * bw + cj] = out;
     }
-    __syncthreads();   // prev holds y_b; red may be overwritten
-  }
+  };
+  run_ring<T, E>(steps * per, S, cap, B, tri, ring, bars, describe,
+                 consume);
 }
 
-// One sweep: f -> y (y must not alias f).
+// Phase 2: one thread block, threads as in a walk over bw columns.
+// s_0 = 0, s_{c+1} = s^_c + s_c . T_c for c = 0..P-2, written to s.
+template <typename T, int E>
+__global__ void __launch_bounds__(kMaxBlock)
+chunk_carry_kernel(const T* __restrict__ tmat, const T* __restrict__ shat,
+                   T* __restrict__ s, int P, int bw, int R, int S, int cap,
+                   int G) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Lanes l = lanes_of(bw, G);
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* state = ring + static_cast<long long>(S) * cap;
+  T* red = state + (bw + 1) / 2 * 2;
+  std::uint64_t* bars = stage_bars(red, G * l.Bc);
+  const int j = l.j;
+  for (int c = threadIdx.x; c < bw; c += blockDim.x) {
+    state[c] = T(0);
+    s[c] = T(0);
+  }
+  const int per = (bw + R - 1) / R;
+  const long long tt = static_cast<long long>(bw) * bw;
+
+  auto describe = [&](int i) {
+    Item<T> it;
+    it.step = i / per;
+    const int r = i - it.step * per;
+    it.kind = 1;
+    it.k0 = r * R;
+    it.rows = min(R, bw - it.k0);
+    it.mat = tmat + it.step * tt + static_cast<long long>(it.k0) * bw;
+    it.vec = r == 0 ? shat + static_cast<long long>(it.step) * bw : nullptr;
+    it.vlen = it.vec ? bw : 0;
+    it.last = r == per - 1;
+    it.b = 0;
+    return it;
+  };
+
+  T a[4] = {T(0), T(0), T(0), T(0)};
+  T h = T(0);
+  auto consume = [&](const Item<T>& it, const T* st) {
+    if (j < bw) {
+      if (it.vlen && l.q == 0) h = st[it.rows * bw + j];
+      dot_rows(a, state, st - it.k0 * bw + j, bw, it.k0, it.k0 + it.rows,
+               l);
+    }
+    if (!it.last) return;
+    red[l.q * l.Bc + j] = sum4(a);
+    __syncthreads();   // every partial written, every read of state done
+    if (l.q != 0 || j >= bw) return;
+    const T out = h + group_sum(red, l);
+    state[j] = out;
+    s[static_cast<long long>(it.step + 1) * bw + j] = out;
+  };
+  run_ring<T, E>((P - 1) * per, S, cap, bw, 0, ring, bars, describe,
+                 consume);
+}
+
+// Stage layout of a walk over rows of width W: R rows (a multiple of E,
+// at least `need` where two stages allow) plus a vector of up to vmax, in
+// S = 2..4 stages of `cap` elements; after the ring, `extra` elements and
+// the stages' mbarriers.
+struct Ring {
+  int R, S, cap;
+  size_t bytes;
+};
+
 template <typename T>
-int launch_sweep(const T* f, const T* wt, const T* wct, T* y, long long nb,
-                 int B, bool forward, cudaStream_t stream) {
-  const int gg = groups_for(B, kGemvThreads);
-  banded_gemv_kernel<T><<<static_cast<unsigned>(nb), gg * B,
-                          sizeof(T) * B * (1 + gg), stream>>>(f, wt, y, B,
-                                                              gg);
-  cudaError_t err = cudaGetLastError();
+bool plan_ring(int W, int need, int vmax, int E, int extra, Ring* out) {
+  const long long item = static_cast<long long>(sizeof(T));
+  const int align = 16 / static_cast<int>(sizeof(T));
+  auto cap_of = [&](int r) {
+    return (r * W + vmax + align - 1) / align * align;
+  };
+  const long long tail = (extra + align - 1) / align * align * item +
+                         kMaxStages * static_cast<long long>(sizeof(
+                             std::uint64_t));
+  int r = (need + E - 1) / E * E;
+  if (r < E) r = E;
+  while (r > E && 2 * cap_of(r) * item + tail > kSmemBudget) r -= E;
+  const long long stage = cap_of(r) * item;
+  if (2 * stage + tail > kSmemBudget) return false;
+  const long long fit = (kSmemBudget - tail) / stage;
+  out->R = r;
+  out->S = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  out->cap = cap_of(r);
+  out->bytes = static_cast<size_t>(out->S * stage + tail);
+  return true;
+}
+
+template <typename T>
+struct Sweep {
+  const T *f, *wt, *wct, *tmat;
+  T *y, *g, *shat, *s;
+  long long nb;
+  int B, bw, m, P, forward, tri;
+};
+
+// Row groups for a walk over `cols` columns: as many as fill 1024
+// threads, at most 8.
+int groups_for(int cols) {
+  const int bc = (cols + 31) / 32 * 32;
+  const int g = kMaxBlock / bc;
+  return g < 1 ? 1 : (g > 8 ? 8 : g);
+}
+
+template <typename T, int E>
+int launch_walk(const Sweep<T>& a, int rerun, cudaStream_t st) {
+  Ring ring;
+  const int need = a.bw > a.B ? a.bw : a.B;
+  const int G = groups_for(a.B), bc = (a.B + 31) / 32 * 32;
+  if (!plan_ring<T>(a.B, need, a.B, E, (a.bw + 1) / 2 * 2 + 2 * G * bc,
+                    &ring))
+    return kBadArgs;
+  auto kern = chunk_walk_kernel<T, E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(ring.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int cg = groups_for(B, kChainThreads);
-  banded_chain_kernel<T><<<1, cg * B, sizeof(T) * B * (1 + cg), stream>>>(
-      wct, y, nb, B, cg, forward ? 1 : 0);
+  kern<<<static_cast<unsigned>(a.P - rerun), G * bc, ring.bytes, st>>>(
+      a.f, a.wt, a.wct, a.g, a.y, a.shat, a.s, a.nb, a.B, a.bw, a.m,
+      a.forward, a.tri, ring.R, ring.S, ring.cap, rerun, G);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(long long nb, int B) {
-  return nb < 1 || nb > 0x7fffffffLL || B < 1 || B > kMaxBlock;
+template <typename T, int E>
+int launch_carry(const Sweep<T>& a, cudaStream_t st) {
+  Ring ring;
+  const int G = groups_for(a.bw), bc = (a.bw + 31) / 32 * 32;
+  if (!plan_ring<T>(a.bw, a.bw, a.bw, E, (a.bw + 1) / 2 * 2 + G * bc,
+                    &ring))
+    return kBadArgs;
+  auto kern = chunk_carry_kernel<T, E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(ring.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<1, G * bc, ring.bytes, st>>>(a.tmat, a.shat, a.s, a.P, a.bw, ring.R,
+                                      ring.S, ring.cap, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+// phases: bit 0 phase 1, bit 1 phase 2, bit 2 phase 3 (7: the sweep; the
+// others time one phase on scratch a whole sweep filled).
+template <typename T>
+int launch_sweep(const Sweep<T>& a, int phases, cudaStream_t st) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const bool v1 = a.B % V == 0 && aligned16(a.f) && aligned16(a.wt) &&
+                  aligned16(a.wct) && aligned16(a.g);
+  const bool v2 = a.bw % V == 0 && aligned16(a.tmat) && aligned16(a.shat);
+  const bool chained = a.P > 1 && a.bw > 0;
+  int rc = 0;
+  if (phases & 1)
+    rc = v1 ? launch_walk<T, V>(a, 0, st) : launch_walk<T, 1>(a, 0, st);
+  if (rc == 0 && chained && (phases & 2))
+    rc = v2 ? launch_carry<T, V>(a, st) : launch_carry<T, 1>(a, st);
+  if (rc == 0 && chained && (phases & 4))
+    rc = v1 ? launch_walk<T, V>(a, 1, st) : launch_walk<T, 1>(a, 1, st);
+  return rc;
+}
+
+bool bad_args(long long nb, int B, int bw, int m, int P, int tri) {
+  return nb < 1 || nb > 0x7fffffffLL || B < 1 || B > kMaxBlock || bw < 0 ||
+         bw > B || m < 1 || P < 1 || (nb + m - 1) / m != P || tri < 0 ||
+         tri > 2;
+}
+
+template <typename T>
+int sweep_typed(const void* f, const void* wt, const void* wct,
+                const void* tmat, void* y, void* g, void* shat, void* s,
+                long long nb, int B, int bw, int m, int P, int forward,
+                int tri, int phases, cudaStream_t st) {
+  Sweep<T> a{static_cast<const T*>(f), static_cast<const T*>(wt),
+             static_cast<const T*>(wct), static_cast<const T*>(tmat),
+             static_cast<T*>(y), static_cast<T*>(g), static_cast<T*>(shat),
+             static_cast<T*>(s), nb, B, bw, m, P, forward != 0 ? 1 : 0, tri};
+  return launch_sweep<T>(a, phases, st);
 }
 
 }  // namespace
@@ -198,24 +592,23 @@ extern "C" {
 
 // B4b. Replaces _banded_sweep / _sweep_kernel (pallas_trisolve.py:73, :46);
 // twice, B4a (_fused_msolve / _fused_kernel, :149, :110).
-// dtype: 0 = float32, 1 = float64.
+// dtype: 0 = float32, 1 = float64.  f, y: nb*B; wt, wct: (nb, B, B);
+// tmat: (P, bw, bw); scratch g: nb*B, shat and s: P*bw.  y must not alias
+// f.  m blocks per chunk, P = ceil(nb / m) chunks; tri: 0 full Wt, 1 rows
+// k <= j, 2 rows k >= j.
 int cmt_banded_sweep(int dtype, const void* f, const void* wt,
-                     const void* wct, void* y, long long nb, int block,
-                     int forward, void* stream) {
-  if (bad_shape(nb, block)) return kBadArgs;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                     const void* wct, const void* tmat, void* y, void* g,
+                     void* shat, void* s, long long nb, int block, int bw,
+                     int m, int chunks, int forward, int tri, int phases,
+                     void* stream) {
+  if (bad_args(nb, block, bw, m, chunks, tri)) return kBadArgs;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_sweep<float>(static_cast<const float*>(f),
-                               static_cast<const float*>(wt),
-                               static_cast<const float*>(wct),
-                               static_cast<float*>(y), nb, block,
-                               forward != 0, s);
+    return sweep_typed<float>(f, wt, wct, tmat, y, g, shat, s, nb, block, bw,
+                              m, chunks, forward, tri, phases, st);
   if (dtype == 1)
-    return launch_sweep<double>(static_cast<const double*>(f),
-                                static_cast<const double*>(wt),
-                                static_cast<const double*>(wct),
-                                static_cast<double*>(y), nb, block,
-                                forward != 0, s);
+    return sweep_typed<double>(f, wt, wct, tmat, y, g, shat, s, nb, block,
+                               bw, m, chunks, forward, tri, phases, st);
   return kBadArgs;
 }
 

@@ -18,8 +18,14 @@ Kernel front ends, each beside its plain PyTorch twin (``*_plain``):
 backward).  A front end sends a CPU tensor to the twin and a CUDA tensor to
 the hand-written kernel (:mod:`._kernels`), or raises; it never falls back.
 Each keeps a plain-int ``launches`` count: one per application (a sweep, or
-a whole msolve), though the kernels behind it run as two or four CUDA
-launches.
+a whole msolve), though the kernels behind it run as up to three or six
+CUDA launches.
+
+On the card a sweep is cut into chunks of ``m`` blocks that run at once
+(``csrc/banded_trisolve.cu``); :func:`sweep_plan` derives, once per factor,
+what that needs from the arrays, and :func:`banded_sweep_chunked_plain` is
+the same three-phase algorithm in PyTorch, which tests hold against the
+sequential twin.
 """
 
 from __future__ import annotations
@@ -31,7 +37,89 @@ import torch
 
 from cuda_mat_tpu_torch.ops import _kernels
 
-MAX_BLOCK = 1024   # one thread per column of a block in kernels B4a/B4b
+MAX_BLOCK = 1024   # columns of a block: kernels B4a/B4b give each a thread
+H100_SMS = 132     # the chunk count's target for arrays off the card
+
+
+# ---------------------------------------------------------------------------
+# The chunked sweep's plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """How kernel B4b walks one sweep.  Only the ``bw`` carry rows of each
+    WCt[b] (the last ones forward, the first backward) can be nonzero, so a
+    block passes on only the matching ``bw`` columns of y_b, its tail; the
+    sweep runs as ``chunks`` chunks of ``m`` blocks in sweep order, and
+    ``t[c]`` (bw × bw) carries a tail across chunk c: the product over its
+    blocks of −WCt[b][carry rows, carry rows].  ``tri``: 1 if each Wt[b] is
+    zero below its diagonal (column j sums rows k ≤ j), 2 if above it (k ≥
+    j), 0 if neither."""
+
+    bw: int
+    tri: int
+    m: int
+    t: torch.Tensor   # (chunks, bw, bw), the arrays' dtype and device
+
+    @property
+    def chunks(self) -> int:
+        return self.t.shape[0]
+
+
+def carry_rows(block: int, bw: int, forward: bool) -> slice:
+    """The rows of WCt[b] that can be nonzero, and the columns of y_b that
+    the next block reads."""
+    return slice(block - bw, block) if forward else slice(0, bw)
+
+
+def _any_over_blocks(w: torch.Tensor, fn) -> torch.Tensor:
+    """OR of ``fn(slab)`` over slabs of ``w``'s blocks (bounded memory)."""
+    out = None
+    for i in range(0, w.shape[0], 512):
+        part = fn(w[i:i + 512])
+        out = part if out is None else out | part
+    return out
+
+
+def sweep_plan(wt: torch.Tensor, wct: torch.Tensor, forward: bool,
+               m: int = None) -> SweepPlan:
+    """The plan of one sweep over (nb, B, B) arrays, read off the arrays on
+    their device: the carry bandwidth (rows of WCt that are not all zero),
+    Wt's triangle, the chunk length ``m`` and the transfer matrices (made in
+    float64, stored in the arrays' dtype).  Default m: P₀ = min(nb, SM
+    count) chunks (one thread block per SM; 132, an H100's, off the card),
+    m = ⌈nb / P₀⌉, P = ⌈nb / m⌉."""
+    nb, block = wt.shape[0], wt.shape[1]
+    rows = _any_over_blocks(wct, lambda s: (s != 0).any(dim=2).any(dim=0))
+    hit = torch.nonzero(rows).flatten().tolist()
+    if not hit:
+        bw = 0
+    else:
+        bw = block - hit[0] if forward else hit[-1] + 1
+    below = _any_over_blocks(wt, lambda s: torch.tril(s, -1).ne(0).any())
+    above = _any_over_blocks(wt, lambda s: torch.triu(s, 1).ne(0).any())
+    tri = 1 if forward and not bool(below) else \
+        2 if not forward and not bool(above) else 0
+    if m is None:
+        sms = (torch.cuda.get_device_properties(wt.device)
+               .multi_processor_count if wt.device.type == "cuda"
+               else H100_SMS)
+        m = -(-nb // min(nb, sms))
+    m = max(1, min(int(m), nb))
+    chunks = -(-nb // m)
+    order = torch.arange(nb, device=wt.device)
+    if not forward:
+        order = order.flip(0)
+    rs = carry_rows(block, bw, forward)
+    phi = torch.eye(bw, dtype=torch.float64, device=wt.device).repeat(
+        chunks, 1, 1)
+    for i in range(m if bw else 0):
+        live = (nb - i + m - 1) // m   # chunks that have an i-th block
+        b = order[torch.arange(live, device=wt.device) * m + i]
+        phi[:live] = -torch.matmul(phi[:live],
+                                   wct[b, rs, rs].to(torch.float64))
+    return SweepPlan(bw, tri, m, phi.to(wct.dtype).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -74,16 +162,65 @@ def banded_sweep_padded_plain(f: torch.Tensor, wt: torch.Tensor,
     return y.view(-1)
 
 
+def banded_sweep_chunked_plain(f: torch.Tensor, wt: torch.Tensor,
+                               wct: torch.Tensor, plan: SweepPlan,
+                               forward: bool) -> torch.Tensor:
+    """Kernel B4b's algorithm in plain PyTorch, phase for phase, with
+    ``plan``'s chunks, transfer matrices and skipped rows (the main path
+    never calls it; tests hold it against :func:`banded_sweep_padded_plain`).
+    The chunks' i-th blocks are taken together, as the kernel's thread
+    blocks run at once:
+
+    1. every chunk from a zero incoming tail: g_b = f_b·Wt[b],
+       y_b = g_b − tail(y_{b−1})·WCt[b][carry rows]; its exit tail ŝ_c;
+    2. the true entry tails, s_0 = 0, s_{c+1} = ŝ_c + s_c·T_c;
+    3. chunks 1.. again from s_c over the stored g."""
+    nb, block = wt.shape[0], wt.shape[1]
+    bw, m, chunks = plan.bw, plan.m, plan.chunks
+    rs = carry_rows(block, bw, forward)
+    order = torch.arange(nb, device=f.device)
+    if not forward:
+        order = order.flip(0)
+    g = torch.matmul(f.view(nb, 1, block), wt).view(nb, block)
+    y = torch.empty_like(g)
+
+    def walk(first, tail):
+        """Chunks first.. from their entry tails; returns the exit tails."""
+        for i in range(m):
+            live = (nb - i + m - 1) // m
+            if live <= first:
+                break
+            b = order[torch.arange(first, live, device=f.device) * m + i]
+            yb = g[b] - torch.matmul(tail[:live - first].unsqueeze(1),
+                                     wct[b, rs, :]).squeeze(1)
+            y[b] = yb
+            tail = torch.cat([yb[:, rs], tail[live - first:]])
+        return tail
+
+    s_hat = walk(0, torch.zeros(chunks, bw, dtype=f.dtype, device=f.device))
+    s = [torch.zeros(bw, dtype=f.dtype, device=f.device)]
+    for c in range(chunks - 1):
+        s.append(s_hat[c] + torch.matmul(s[c], plan.t[c]))
+    if chunks > 1 and bw:
+        walk(1, torch.stack(s[1:]))
+    return y.view(-1)
+
+
 def banded_sweep_padded(f: torch.Tensor, wt: torch.Tensor, wct: torch.Tensor,
-                        forward: bool) -> torch.Tensor:
+                        forward: bool, plan: SweepPlan = None
+                        ) -> torch.Tensor:
     """One triangular sweep ``f [nb·B] → y [nb·B]``, forward (lower factor)
     or backward (upper factor) over the blocks (counterpart of
     ``cuda_mat_tpu.ops.pallas_trisolve._banded_sweep``).  CPU tensors run
-    the plain twin, CUDA tensors kernel B4b."""
+    the plain twin, CUDA tensors kernel B4b with ``plan`` (default: derived
+    from the arrays here, after the kernel is built)."""
     _check_operands(f, (wt, wct))
     if f.device.type == "cpu":
         return banded_sweep_padded_plain(f, wt, wct, forward)
-    y = _kernels.banded_sweep(f, wt, wct, forward)
+    if plan is None:
+        _kernels.trisolve_library()
+        plan = sweep_plan(wt, wct, forward)
+    y = _kernels.banded_sweep(f, wt, wct, plan, forward)
     banded_sweep_padded.launches += 1
     return y
 
@@ -99,18 +236,19 @@ def fused_msolve_padded_plain(f: torch.Tensor, wt_lo, wct_lo, wt_up,
     return banded_sweep_padded_plain(y, wt_up, wct_up, False)
 
 
-def fused_msolve_padded(f: torch.Tensor, wt_lo, wct_lo, wt_up,
-                        wct_up) -> torch.Tensor:
+def fused_msolve_padded(f: torch.Tensor, wt_lo, wct_lo, wt_up, wct_up,
+                        plans=(None, None)) -> torch.Tensor:
     """``M⁻¹f = U \\ (L \\ f)`` over ``nb·B`` padded rows (counterpart of
     ``cuda_mat_tpu.ops.pallas_trisolve._fused_msolve``).  CPU tensors run
     the plain twin, CUDA tensors kernel B4a: the forward sweep of B4b, then
-    the backward one (its GEMV needs all of y), counted once here and once
-    each by B4b.  The TPU fused the two into one launch to keep y in VMEM."""
+    the backward one (its first phase needs all of y), with ``plans`` (lower,
+    upper), counted once here and once each by B4b.  The TPU fused the two
+    into one launch to keep y in VMEM."""
     _check_operands(f, (wt_lo, wct_lo), (wt_up, wct_up))
     if f.device.type == "cpu":
         return fused_msolve_padded_plain(f, wt_lo, wct_lo, wt_up, wct_up)
-    y = banded_sweep_padded(f, wt_lo, wct_lo, True)
-    x = banded_sweep_padded(y, wt_up, wct_up, False)
+    y = banded_sweep_padded(f, wt_lo, wct_lo, True, plans[0])
+    x = banded_sweep_padded(y, wt_up, wct_up, False, plans[1])
     fused_msolve_padded.launches += 1
     return x
 
@@ -150,6 +288,17 @@ class BandedTriSolver:
     block: int
     unroll: int = 1       # the JAX layout's blocks per grid step: nb is a
                           # multiple of it; the kernels ignore it
+    plan_lo: SweepPlan = dataclasses.field(init=False)   # kernel B4b's
+    plan_up: SweepPlan = dataclasses.field(init=False)   # plans, per factor
+
+    def __post_init__(self):
+        """Derive both sweeps' plans from the arrays: every solver, made
+        by :meth:`from_factor` or carried from the JAX package, gets them
+        here, once."""
+        object.__setattr__(self, "plan_lo",
+                           sweep_plan(self.wt_lo, self.wct_lo, True))
+        object.__setattr__(self, "plan_up",
+                           sweep_plan(self.wt_up, self.wct_up, False))
 
     @property
     def npad(self) -> int:
@@ -214,11 +363,11 @@ class BandedTriSolver:
 
     def solve_lower(self, f: torch.Tensor) -> torch.Tensor:
         return banded_sweep_padded(self._pad(f), self.wt_lo, self.wct_lo,
-                                   True)[:self.n]
+                                   True, self.plan_lo)[:self.n]
 
     def solve_upper(self, f: torch.Tensor) -> torch.Tensor:
         return banded_sweep_padded(self._pad(f), self.wt_up, self.wct_up,
-                                   False)[:self.n]
+                                   False, self.plan_up)[:self.n]
 
     def msolve(self, f: torch.Tensor) -> torch.Tensor:
         """``M⁻¹ f = U \\ (L \\ f)``: one application of kernel B4a.  (The
@@ -226,4 +375,5 @@ class BandedTriSolver:
         the TPU's on-chip memory, run the same two sweeps as two calls; on
         Hopper B4a is those two sweeps, so there is nothing to choose.)"""
         return fused_msolve_padded(self._pad(f), self.wt_lo, self.wct_lo,
-                                   self.wt_up, self.wct_up)[:self.n]
+                                   self.wt_up, self.wct_up,
+                                   (self.plan_lo, self.plan_up))[:self.n]

@@ -121,7 +121,7 @@ class PallasDIAOperator:
 
     @classmethod
     def from_dia(cls, dia, dtype=torch.float32, block: int = 32768,
-                 device="cpu") -> "PallasDIAOperator":
+                 device="cuda") -> "PallasDIAOperator":
         """The JAX package's layout: ``sub`` = the bandwidth rounded up to
         1024, ``block`` = max(block, sub) rounded up to a multiple of
         ``sub``, ``npad`` = n rounded up to ``block``.  (A diagonal matrix,

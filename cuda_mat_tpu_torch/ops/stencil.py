@@ -647,7 +647,7 @@ class ConstStencilOperator:
         return self.n // self.c_grid
 
     @classmethod
-    def from_dia(cls, dia, dtype=torch.float32, device="cpu",
+    def from_dia(cls, dia, dtype=torch.float32, device="cuda",
                  block_target: int = 262144, min_sub: int = 0
                  ) -> "ConstStencilOperator":
         det = detect_const_stencil(dia)

@@ -69,7 +69,7 @@ def _pair(name):
 def test_twin_matches_jax_kernel(name, dtype, block):
     dt, dj = _pair(name)
     op_t = tds.PallasDIAOperator.from_dia(dt, dtype=getattr(torch, dtype),
-                                          block=block)
+                                          block=block, device="cpu")
     op_j = JOperator.from_dia(dj, dtype=getattr(jnp, dtype), block=block,
                               interpret=True)
     assert (op_t.npad, op_t.block, op_t.sub) == (op_j.npad, op_j.block,
@@ -104,7 +104,8 @@ def test_diagonal_matrix_gets_a_nonzero_sub():
     n = 50
     d = np.arange(1.0, n + 1)[None, :]
     op = tds.PallasDIAOperator.from_dia(
-        DIAMatrix(n, n, np.zeros(1, np.int32), d, n), dtype=torch.float64)
+        DIAMatrix(n, n, np.zeros(1, np.int32), d, n), dtype=torch.float64,
+        device="cpu")
     assert (op.sub, op.block, op.npad) == (1024, 32768, 32768)
     x = np.random.default_rng(0).standard_normal(n)
     np.testing.assert_array_equal(op.unpad_vec(op.matvec(op.pad_vec(x))),
@@ -116,7 +117,8 @@ def test_diagonal_matrix_gets_a_nonzero_sub():
 
 def test_front_end_checks_its_operands():
     dt, _ = _pair("laplacian20")
-    op = tds.PallasDIAOperator.from_dia(dt, dtype=torch.float64, block=2048)
+    op = tds.PallasDIAOperator.from_dia(dt, dtype=torch.float64, block=2048,
+                                        device="cpu")
     x = op.pad_vec(np.ones(dt.n))
     with pytest.raises(ValueError, match="shape"):
         tds.dia_spmv_block_padded(op.data, x[:-1], op.offsets, op.block,

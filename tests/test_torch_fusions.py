@@ -119,7 +119,7 @@ def test_spmv_dots_twin_matches_pallas(n_w, with_self):
     op = jst.ConstStencilOperator.from_dia(a_j.to_dia(max_diags=16),
                                            dtype=jnp.float64, interpret=True)
     op_t = tst.ConstStencilOperator.from_dia(a_t.to_dia(max_diags=16),
-                                             dtype=torch.float64)
+                                             dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(5)
     x = rng.standard_normal(op.n)
     ws = [rng.standard_normal(op.n) for _ in range(n_w)]

@@ -6,9 +6,10 @@ by a fallback.  The ``gpu`` tests compare each CUDA kernel with its twin
 and skip without a card: the stencil kernels B1/B2/B5/B6, the 2-D stencil
 B7 and the banded DIA SpMV B3 bit for bit (they round every product and
 sum on its own, as the twins do; B6's dots are the twin's tree), the
-banded trisolve
-kernels B4a/B4b to 1e-12 (f64) and 1e-5 (f32) of max|twin| (they sum in
-another order than the twin's torch.matmul).
+banded trisolve kernels B4a/B4b to 1e-12 (f64) and 1e-5 (f32) of max|twin|
+(they sum in another order than the twin's torch.matmul), both against the
+sequential twin and against the chunked plain version of their algorithm,
+and equal bit for bit over two launches.
 """
 
 import numpy as np
@@ -30,7 +31,7 @@ torch.set_num_threads(1)
 def _setup(r=64, c=64, k=4, dtype=torch.float64, device="cpu"):
     a = tprob.grid_laplacian(r, c)
     d = a.to_dia(max_diags=16)
-    op0 = tst.ConstStencilOperator.from_dia(d, dtype=dtype)
+    op0 = tst.ConstStencilOperator.from_dia(d, dtype=dtype, device="cpu")
     plan = tst.plan_const_neumann_layout(op0.terms, k, op0.c_grid, op0.stride)
     op = tst.ConstStencilOperator.from_dia(d, dtype=dtype, device=device,
                                            min_sub=plan[0],
@@ -126,6 +127,20 @@ def test_trisolve_missing_build_raises_and_never_falls_back(monkeypatch):
         tbt.fused_msolve_padded(meta, w, w, w, w)
     assert tbt.fused_msolve_padded.launches == 0
     assert tbt.banded_sweep_padded.launches == 0
+
+
+def test_operator_constructors_default_to_the_card():
+    """ConstStencilOperator.from_dia and PallasDIAOperator.from_dia, like
+    the entry points, put their tensors on the card unless asked for the
+    CPU: without a card they raise rather than quietly return CPU tensors."""
+    dia = tprob.grid_laplacian(64, 64).to_dia(max_diags=16)
+    for make in (tst.ConstStencilOperator.from_dia,
+                 tds.PallasDIAOperator.from_dia):
+        if torch.cuda.is_available():
+            assert make(dia).device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                make(dia)
 
 
 def _dia(dtype=torch.float64, device="cpu"):
@@ -309,6 +324,7 @@ def test_kernels_equal_twins_on_card(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_trisolve_kernels_match_twins_on_card(dtype, side, block):
     a, tri = _tri(side, block, dtype, "cuda")
+    assert tri.plan_lo.chunks > 1 and tri.plan_lo.bw == side
     f = tri._pad(torch.from_numpy(
         np.random.default_rng(1).standard_normal(a.n)).to("cuda"))
     bound = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
@@ -324,17 +340,30 @@ def test_trisolve_kernels_match_twins_on_card(dtype, side, block):
                                          tri.wct_up),
          lambda: tbt.fused_msolve_padded_plain(f, tri.wt_lo, tri.wct_lo,
                                                tri.wt_up, tri.wct_up))]
-    for kern, plain in cases:
+    chunked = [
+        lambda: tbt.banded_sweep_chunked_plain(f, tri.wt_lo, tri.wct_lo,
+                                               tri.plan_lo, True),
+        lambda: tbt.banded_sweep_chunked_plain(f, tri.wt_up, tri.wct_up,
+                                               tri.plan_up, False),
+        lambda: tbt.banded_sweep_chunked_plain(
+            tbt.banded_sweep_chunked_plain(f, tri.wt_lo, tri.wct_lo,
+                                           tri.plan_lo, True),
+            tri.wt_up, tri.wct_up, tri.plan_up, False)]
+    for (kern, plain), chunk in zip(cases, chunked):
         torch.full_like(f, float("nan"))
         yk = kern()
-        yp = plain()
+        torch.full_like(f, float("nan"))
+        yk2 = kern()
+        yp, yc = plain(), chunk()
         torch.cuda.synchronize()
         assert torch.isfinite(yk).all()
+        assert torch.equal(yk, yk2)   # deterministic: no atomics
         assert (yk - yp).abs().max() <= bound * yp.abs().max()
+        assert (yk - yc).abs().max() <= bound * yp.abs().max()
         assert torch.count_nonzero(yk[a.n:]) == 0
     # B4a runs B4b forward and backward: two sweeps of its own
-    assert tbt.banded_sweep_padded.launches == 4
-    assert tbt.fused_msolve_padded.launches == 1
+    assert tbt.banded_sweep_padded.launches == 8
+    assert tbt.fused_msolve_padded.launches == 2
 
 
 @pytest.mark.gpu

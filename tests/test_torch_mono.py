@@ -54,7 +54,8 @@ def _mono(r, c, k, omega=0.96):
     op_j = jst.ConstStencilOperator.from_dia(dia, dtype=jnp.float64,
                                              interpret=True, **kw)
     op_t = tst.ConstStencilOperator.from_dia(a_t.to_dia(max_diags=16),
-                                             dtype=torch.float64, **kw)
+                                             dtype=torch.float64,
+                                             device="cpu", **kw)
     pre_j = jpre.NeumannILUPreconditioner.from_csr(
         a_j, dtype=jnp.float64, terms=k, pad_like=op_j, prefer_mono=True,
         milu_omega=omega)

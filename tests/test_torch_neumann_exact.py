@@ -151,7 +151,8 @@ def test_factor_layout_mismatch_raises():
     package's solver falls back to unpadded operators; the port's solver
     raises NotImplementedError naming that ROADMAP item."""
     a = _asymmetric_band(ct.CSRMatrix, TCOOMatrix)
-    op = tds.PallasDIAOperator.from_dia(a.to_dia(), dtype=torch.float64)
+    op = tds.PallasDIAOperator.from_dia(a.to_dia(), dtype=torch.float64,
+                                        device="cpu")
     assert (op.sub, op.block) == (3072, 33792)
     with pytest.raises(ValueError, match="padding"):
         tpre.NeumannILUPreconditioner.from_csr(a, pad_like=op)
