@@ -25,8 +25,9 @@ script exits non-zero:
    sequential twins and the chunked plain version of their algorithm in
    f32 and f64 at the mat10000 layout and the 1M-row layout, within 1e-5
    (f32) / 1e-12 (f64) of max|twin|, two launches bitwise equal; the plans
-   (m, P); times and bounds as in 3, the chunked design's byte floor and
-   each of B4b's three launches timed alone;
+   (m, P); times and bounds as in 3, the chunked design's byte floor
+   (printed) and each of B4b's three launches inside whole sweeps (a
+   torch.profiler trace);
 6. main path 2, the reference's default solve: exact ILU(0) BiCGSTAB
    (bicgstab_lu_precond) on data/mat900.mtx and data/mat10000.mtx on the
    card and on the CPU, in f64 and f32, against the goldens; refinement of
@@ -410,39 +411,73 @@ def trisolve_parity(tri, csr, tag, stats, timed):
         floor = [(nb * (blk * (blk + 1) // 2 + 2 * p.bw * blk)
                   + p.chunks * p.bw * p.bw) * item + 4 * vec for p in plans]
         floor_ms = [b / HBM_BYTES_PER_S * 1e3 for b in floor]
-        stats["banded_fused_msolve"]["design_floor_ms"] = sum(floor_ms)
-        stats["banded_sweep"]["design_floor_ms"] = floor_ms[0]
-        for k, arrays in (("banded_fused_msolve", 4), ("banded_sweep", 2)):
+        for k, arrays, fl in (("banded_fused_msolve", 4, sum(floor_ms)),
+                              ("banded_sweep", 2, floor_ms[0])):
             dense_ms, nnz_ms = (
                 (entries * item + 2 * vec) / HBM_BYTES_PER_S * 1e3
                 for entries in (arrays * nb * blk * blk, sum(nnz[:arrays])))
             print(f"{tag} {k}: bound {stats[k]['bound_ms']:.4f} ms"
                   f" ({stats[k]['bound_by']}; structural nonzeros,"
                   f" bandwidths {w_lo}/{w_up}); the chunked design's byte"
-                  f" floor {stats[k]['design_floor_ms']:.4f} ms; its"
+                  f" floor {fl:.4f} ms; its"
                   f" {arrays} (nb, B, B) arrays read whole: {dense_ms:.4f}"
                   f" ms; their nonzero entries alone: {nnz_ms:.4f} ms",
                   flush=True)
         phase_times(f, tri, tag, stats)
 
 
+def sweep_launch_ms(sweep, reps=20):
+    """Device times of the three launches of ``sweep()`` (phases 1, 2, 3),
+    each the median over the sweeps of one torch.profiler trace of
+    ``reps`` sweeps, and the number of sweeps found.  A sweep is a walk, a
+    carry and a walk launch in a row; the last ``reps`` such triples in the
+    trace are used.  Times None where the trace holds no such triple."""
+    sweep()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            sweep()
+        torch.cuda.synchronize()
+    runs = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "chunk_" in e.name)
+    kinds = ["chunk_walk_kernel", "chunk_carry_kernel", "chunk_walk_kernel"]
+    sweeps, i = [], 0
+    while i + 3 <= len(runs):
+        if all(k in r[1] for k, r in zip(kinds, runs[i:i + 3])):
+            sweeps.append([r[2] for r in runs[i:i + 3]])
+            i += 3
+        else:
+            i += 1
+    sweeps = sweeps[-reps:]
+    if not sweeps:
+        return None, len(runs)
+    return [statistics.median(t[k] for t in sweeps) / 1e3
+            for k in range(3)], len(sweeps)
+
+
 def phase_times(f, tri, tag, stats):
-    """Each of B4b's three launches timed alone (CUDA events, median of
-    20), on the scratch a whole sweep filled, for both sweeps."""
-    out = {}
+    """Each of B4b's three launches inside whole sweeps, both directions
+    (``sweep_launch_ms``); the forward sweep's go into B4b's stats."""
     for fw, wt, wct, plan in ((True, tri.wt_lo, tri.wct_lo, tri.plan_lo),
                               (False, tri.wt_up, tri.wct_up, tri.plan_up)):
-        scratch = _kernels.sweep_scratch(f, plan.chunks, plan.bw)
-        y = _kernels.banded_sweep(f, wt, wct, plan, fw, scratch=scratch)
+        ms, found = sweep_launch_ms(lambda: bt.banded_sweep_padded(
+            f, wt, wct, fw, plan))
         key = "forward" if fw else "backward"
-        out[key] = [cuda_ms(lambda: _kernels.banded_sweep(
-            f, wt, wct, plan, fw, bit, y, scratch)) for bit in (1, 2, 4)]
-        print(f"{tag} {str(f.dtype)[6:]} banded_sweep {key} phases (1 all"
-              f" chunks from zero, 2 the carries, 3 the rerun): "
-              + ", ".join(f"{t:.4f}" for t in out[key]) + " ms", flush=True)
-    stats["banded_sweep"]["phase_ms"] = out["forward"]
-    stats["banded_fused_msolve"]["phase_ms"] = [
-        a + b for a, b in zip(out["forward"], out["backward"])]
+        what = (f"not measured ({found} chunk kernels in the trace, no"
+                f" walk-carry-walk triple)" if ms is None else
+                ", ".join(f"{t:.4f}" for t in ms)
+                + f" ms (median of {found} sweeps)")
+        print(f"{tag} {str(f.dtype)[6:]} banded_sweep {key} launches (1 all"
+              f" chunks from zero, 2 the carries, 3 the rerun; profiler"
+              f" device times): {what}", flush=True)
+        if fw:
+            stats["banded_sweep"].pop("phase_ms", None)
+            if ms is not None:
+                stats["banded_sweep"]["phase_ms"] = ms
 
 
 def trisolve_library(a, tri, stats):

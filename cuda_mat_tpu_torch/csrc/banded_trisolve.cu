@@ -16,7 +16,8 @@
 // depends on y_{b-1} only through its bw carry columns, its "tail"; and Wt[b]
 // is triangular (rows k <= j forward, k >= j backward) when `tri` says so.
 // The plan (ops/banded_trisolve.py: sweep_plan) reads bw and tri off the
-// arrays, so skipping the other rows is exact for any arrays.
+// arrays, so skipping the other rows is exact for any arrays; it rounds bw
+// up to whole 16-byte rows (at most B), adding only rows that are zero.
 //
 // The TPU walked the blocks as one sequential grid.  Here the sweep is cut
 // into P chunks of m blocks in sweep order, and the recurrence, being
@@ -549,23 +550,20 @@ bool aligned16(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
-// phases: bit 0 phase 1, bit 1 phase 2, bit 2 phase 3 (7: the sweep; the
-// others time one phase on scratch a whole sweep filled).
+// The three launches of a sweep; one (phase 1) when it has a single chunk
+// or no carry.  The plan rounds bw up to whole 16-byte rows, so the carry
+// kernel takes one element at a time only when bw = B is not.
 template <typename T>
-int launch_sweep(const Sweep<T>& a, int phases, cudaStream_t st) {
+int launch_sweep(const Sweep<T>& a, cudaStream_t st) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
   const bool v1 = a.B % V == 0 && aligned16(a.f) && aligned16(a.wt) &&
                   aligned16(a.wct) && aligned16(a.g);
   const bool v2 = a.bw % V == 0 && aligned16(a.tmat) && aligned16(a.shat);
-  const bool chained = a.P > 1 && a.bw > 0;
-  int rc = 0;
-  if (phases & 1)
-    rc = v1 ? launch_walk<T, V>(a, 0, st) : launch_walk<T, 1>(a, 0, st);
-  if (rc == 0 && chained && (phases & 2))
-    rc = v2 ? launch_carry<T, V>(a, st) : launch_carry<T, 1>(a, st);
-  if (rc == 0 && chained && (phases & 4))
-    rc = v1 ? launch_walk<T, V>(a, 1, st) : launch_walk<T, 1>(a, 1, st);
-  return rc;
+  int rc = v1 ? launch_walk<T, V>(a, 0, st) : launch_walk<T, 1>(a, 0, st);
+  if (rc != 0 || a.P == 1 || a.bw == 0) return rc;
+  rc = v2 ? launch_carry<T, V>(a, st) : launch_carry<T, 1>(a, st);
+  if (rc != 0) return rc;
+  return v1 ? launch_walk<T, V>(a, 1, st) : launch_walk<T, 1>(a, 1, st);
 }
 
 bool bad_args(long long nb, int B, int bw, int m, int P, int tri) {
@@ -578,12 +576,12 @@ template <typename T>
 int sweep_typed(const void* f, const void* wt, const void* wct,
                 const void* tmat, void* y, void* g, void* shat, void* s,
                 long long nb, int B, int bw, int m, int P, int forward,
-                int tri, int phases, cudaStream_t st) {
+                int tri, cudaStream_t st) {
   Sweep<T> a{static_cast<const T*>(f), static_cast<const T*>(wt),
              static_cast<const T*>(wct), static_cast<const T*>(tmat),
              static_cast<T*>(y), static_cast<T*>(g), static_cast<T*>(shat),
              static_cast<T*>(s), nb, B, bw, m, P, forward != 0 ? 1 : 0, tri};
-  return launch_sweep<T>(a, phases, st);
+  return launch_sweep<T>(a, st);
 }
 
 }  // namespace
@@ -599,16 +597,15 @@ extern "C" {
 int cmt_banded_sweep(int dtype, const void* f, const void* wt,
                      const void* wct, const void* tmat, void* y, void* g,
                      void* shat, void* s, long long nb, int block, int bw,
-                     int m, int chunks, int forward, int tri, int phases,
-                     void* stream) {
+                     int m, int chunks, int forward, int tri, void* stream) {
   if (bad_args(nb, block, bw, m, chunks, tri)) return kBadArgs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return sweep_typed<float>(f, wt, wct, tmat, y, g, shat, s, nb, block, bw,
-                              m, chunks, forward, tri, phases, st);
+                              m, chunks, forward, tri, st);
   if (dtype == 1)
     return sweep_typed<double>(f, wt, wct, tmat, y, g, shat, s, nb, block,
-                               bw, m, chunks, forward, tri, phases, st);
+                               bw, m, chunks, forward, tri, st);
   return kBadArgs;
 }
 

@@ -96,7 +96,7 @@ def trisolve_library() -> ctypes.CDLL:
     (``csrc/banded_trisolve.cu``)."""
     return _load("banded_trisolve.cu", "libcmt_trisolve", {
         "cmt_banded_sweep": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                             _I, _I, _I, _I, _I, _P]})
+                             _I, _I, _I, _I, _P]})
 
 
 def dia_library() -> ctypes.CDLL:
@@ -316,31 +316,22 @@ def stencil2d_spmv(coeffs: torch.Tensor, x_pad: torch.Tensor, offsets,
     return y
 
 
-def sweep_scratch(f: torch.Tensor, chunks: int, bw: int):
-    """Kernel B4b's scratch: g (len(f)), the chunks' exit tails and their
-    entry states (chunks · bw each)."""
-    return (torch.empty_like(f),
-            torch.empty(chunks * bw, dtype=f.dtype, device=f.device),
-            torch.empty(chunks * bw, dtype=f.dtype, device=f.device))
-
-
 def banded_sweep(f: torch.Tensor, wt: torch.Tensor, wct: torch.Tensor, plan,
-                 forward: bool, phases: int = 7, out=None,
-                 scratch=None) -> torch.Tensor:
+                 forward: bool) -> torch.Tensor:
     """Launch kernel B4b on ``f``'s device and current stream: the chunked
     sweep of ``plan`` (a ``banded_trisolve.SweepPlan``) in up to three
-    launches.  ``phases`` (bits 1, 2, 4) picks them, with ``out`` and
-    ``scratch`` kept from a whole sweep, to time one phase alone."""
+    launches, over scratch for g and the chunks' exit and entry tails."""
     lib = trisolve_library()
     _check_cuda(f, wt, wct, plan.t)
-    y = torch.empty_like(f) if out is None else out
-    g, shat, s = scratch or sweep_scratch(f, plan.chunks, plan.bw)
+    y, g = torch.empty_like(f), torch.empty_like(f)
+    shat, s = torch.empty(2, plan.chunks * plan.bw, dtype=f.dtype,
+                          device=f.device)
     with torch.cuda.device(f.device):
         rc = lib.cmt_banded_sweep(
             _DTYPE_CODE[f.dtype], f.data_ptr(), wt.data_ptr(), wct.data_ptr(),
             plan.t.data_ptr(), y.data_ptr(), g.data_ptr(), shat.data_ptr(),
             s.data_ptr(), wt.shape[0], wt.shape[1], plan.bw, plan.m,
-            plan.chunks, int(forward), plan.tri, phases,
+            plan.chunks, int(forward), plan.tri,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "banded_sweep")
     return y

@@ -50,8 +50,10 @@ H100_SMS = 132     # the chunk count's target for arrays off the card
 class SweepPlan:
     """How kernel B4b walks one sweep.  Only the ``bw`` carry rows of each
     WCt[b] (the last ones forward, the first backward) can be nonzero, so a
-    block passes on only the matching ``bw`` columns of y_b, its tail; the
-    sweep runs as ``chunks`` chunks of ``m`` blocks in sweep order, and
+    block passes on only the matching ``bw`` columns of y_b, its tail
+    (``bw`` is rounded up to whole 16-byte rows, at most B: the rows it adds
+    are zero, and every carry slab comes by one bulk copy); the sweep runs
+    as ``chunks`` chunks of ``m`` blocks in sweep order, and
     ``t[c]`` (bw × bw) carries a tail across chunk c: the product over its
     blocks of −WCt[b][carry rows, carry rows].  ``tri``: 1 if each Wt[b] is
     zero below its diagonal (column j sums rows k ≤ j), 2 if above it (k ≥
@@ -85,9 +87,10 @@ def _any_over_blocks(w: torch.Tensor, fn) -> torch.Tensor:
 def sweep_plan(wt: torch.Tensor, wct: torch.Tensor, forward: bool,
                m: int = None) -> SweepPlan:
     """The plan of one sweep over (nb, B, B) arrays, read off the arrays on
-    their device: the carry bandwidth (rows of WCt that are not all zero),
-    Wt's triangle, the chunk length ``m`` and the transfer matrices (made in
-    float64, stored in the arrays' dtype).  Default m: P₀ = min(nb, SM
+    their device: the carry bandwidth (rows of WCt that are not all zero,
+    rounded up to a multiple of 16 bytes and at most B), Wt's triangle,
+    the chunk length ``m`` and the transfer matrices (made in float64,
+    stored in the arrays' dtype).  Default m: P₀ = min(nb, SM
     count) chunks (one thread block per SM; 132, an H100's, off the card),
     m = ⌈nb / P₀⌉, P = ⌈nb / m⌉."""
     nb, block = wt.shape[0], wt.shape[1]
@@ -97,6 +100,8 @@ def sweep_plan(wt: torch.Tensor, wct: torch.Tensor, forward: bool,
         bw = 0
     else:
         bw = block - hit[0] if forward else hit[-1] + 1
+        per16 = 16 // wct.element_size()
+        bw = min(block, -(-bw // per16) * per16)
     below = _any_over_blocks(wt, lambda s: torch.tril(s, -1).ne(0).any())
     above = _any_over_blocks(wt, lambda s: torch.triu(s, 1).ne(0).any())
     tri = 1 if forward and not bool(below) else \
@@ -212,14 +217,15 @@ def banded_sweep_padded(f: torch.Tensor, wt: torch.Tensor, wct: torch.Tensor,
     """One triangular sweep ``f [nb·B] → y [nb·B]``, forward (lower factor)
     or backward (upper factor) over the blocks (counterpart of
     ``cuda_mat_tpu.ops.pallas_trisolve._banded_sweep``).  CPU tensors run
-    the plain twin, CUDA tensors kernel B4b with ``plan`` (default: derived
-    from the arrays here, after the kernel is built)."""
+    the plain twin, CUDA tensors kernel B4b with ``plan``, which they
+    require (:func:`sweep_plan`, made once per factor: a
+    :class:`BandedTriSolver`'s ``plan_lo`` / ``plan_up``)."""
     _check_operands(f, (wt, wct))
     if f.device.type == "cpu":
         return banded_sweep_padded_plain(f, wt, wct, forward)
     if plan is None:
-        _kernels.trisolve_library()
-        plan = sweep_plan(wt, wct, forward)
+        raise ValueError("kernel B4b needs the sweep's plan (sweep_plan, made"
+                         " once per factor)")
     y = _kernels.banded_sweep(f, wt, wct, plan, forward)
     banded_sweep_padded.launches += 1
     return y
@@ -241,9 +247,9 @@ def fused_msolve_padded(f: torch.Tensor, wt_lo, wct_lo, wt_up, wct_up,
     """``M⁻¹f = U \\ (L \\ f)`` over ``nb·B`` padded rows (counterpart of
     ``cuda_mat_tpu.ops.pallas_trisolve._fused_msolve``).  CPU tensors run
     the plain twin, CUDA tensors kernel B4a: the forward sweep of B4b, then
-    the backward one (its first phase needs all of y), with ``plans`` (lower,
-    upper), counted once here and once each by B4b.  The TPU fused the two
-    into one launch to keep y in VMEM."""
+    the backward one (its first phase needs all of y), with ``plans``
+    (lower, upper; required there), counted once here and once each by
+    B4b.  The TPU fused the two into one launch to keep y in VMEM."""
     _check_operands(f, (wt_lo, wct_lo), (wt_up, wct_up))
     if f.device.type == "cpu":
         return fused_msolve_padded_plain(f, wt_lo, wct_lo, wt_up, wct_up)

@@ -121,9 +121,32 @@ def test_trisolve_missing_build_raises_and_never_falls_back(monkeypatch):
     tbt.reset_launch_counts()
     meta = torch.empty(tri.npad, dtype=torch.float64, device="meta")
     w = tri.wt_lo.to("meta")
+    plans = (tri.plan_lo, tri.plan_up)
     with pytest.raises(RuntimeError, match="kernel build failed"):
+        tbt.banded_sweep_padded(meta, w, w, True, plans[0])
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tbt.fused_msolve_padded(meta, w, w, w, w, plans)
+    assert tbt.fused_msolve_padded.launches == 0
+    assert tbt.banded_sweep_padded.launches == 0
+
+
+def test_trisolve_kernel_path_requires_the_plan(monkeypatch):
+    """On a non-CPU tensor the front ends take the factor's plan and never
+    derive one per call: without it they raise before building or
+    launching anything."""
+    _, tri = _tri()
+
+    def built(*a, **k):
+        raise AssertionError("built or planned without a plan")
+
+    monkeypatch.setattr(_kernels, "trisolve_library", built)
+    monkeypatch.setattr(tbt, "sweep_plan", built)
+    tbt.reset_launch_counts()
+    meta = torch.empty(tri.npad, dtype=torch.float64, device="meta")
+    w = tri.wt_lo.to("meta")
+    with pytest.raises(ValueError, match="plan"):
         tbt.banded_sweep_padded(meta, w, w, True)
-    with pytest.raises(RuntimeError, match="kernel build failed"):
+    with pytest.raises(ValueError, match="plan"):
         tbt.fused_msolve_padded(meta, w, w, w, w)
     assert tbt.fused_msolve_padded.launches == 0
     assert tbt.banded_sweep_padded.launches == 0
@@ -320,24 +343,33 @@ def test_kernels_equal_twins_on_card(dtype):
 @pytest.mark.gpu
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card")
-@pytest.mark.parametrize("side,block", [(30, 32), (30, 64), (100, 128)])
+@pytest.mark.parametrize("side,block", [(30, 32), (30, 64), (100, 128),
+                                        (20, 30), (30, 45), (30, 31)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_trisolve_kernels_match_twins_on_card(dtype, side, block):
+    """Blocks 30 (f32), 45 and 31 are not whole 16-byte rows: the walk
+    kernel copies one element at a time; at 31 in f32 the carry (bw 30
+    rounded up to 32, capped at 31) does too."""
     a, tri = _tri(side, block, dtype, "cuda")
-    assert tri.plan_lo.chunks > 1 and tri.plan_lo.bw == side
+    per16 = 16 // tri.wt_lo.element_size()
+    assert tri.plan_lo.chunks > 1
+    assert tri.plan_lo.bw == min(block, -(-side // per16) * per16)
+    plans = (tri.plan_lo, tri.plan_up)
     f = tri._pad(torch.from_numpy(
         np.random.default_rng(1).standard_normal(a.n)).to("cuda"))
     bound = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
     tbt.reset_launch_counts()
     cases = [
-        (lambda: tbt.banded_sweep_padded(f, tri.wt_lo, tri.wct_lo, True),
+        (lambda: tbt.banded_sweep_padded(f, tri.wt_lo, tri.wct_lo, True,
+                                         plans[0]),
          lambda: tbt.banded_sweep_padded_plain(f, tri.wt_lo, tri.wct_lo,
                                                True)),
-        (lambda: tbt.banded_sweep_padded(f, tri.wt_up, tri.wct_up, False),
+        (lambda: tbt.banded_sweep_padded(f, tri.wt_up, tri.wct_up, False,
+                                         plans[1]),
          lambda: tbt.banded_sweep_padded_plain(f, tri.wt_up, tri.wct_up,
                                                False)),
         (lambda: tbt.fused_msolve_padded(f, tri.wt_lo, tri.wct_lo, tri.wt_up,
-                                         tri.wct_up),
+                                         tri.wct_up, plans),
          lambda: tbt.fused_msolve_padded_plain(f, tri.wt_lo, tri.wct_lo,
                                                tri.wt_up, tri.wct_up))]
     chunked = [

@@ -101,6 +101,13 @@ def _band_sides(a):
     return max(-int(offs.min()), 0), max(int(offs.max()), 0)
 
 
+def _carry_width(side, block, dtype):
+    """A plan's bw: the band side rounded up to whole 16-byte rows, at most
+    the block."""
+    per16 = 16 // torch.empty(0, dtype=dtype).element_size()
+    return min(block, -(-side // per16) * per16)
+
+
 def _m(which, nb):
     return {"1": 1, "3": 3, "nb": nb, "beyond": nb + 7}[which]
 
@@ -140,12 +147,14 @@ def test_chunked_sweep_matches_twin_and_pallas(name, block, dtype, which):
 @pytest.mark.parametrize("name,block", CASES)
 def test_plan_reads_the_factor(name, block, dtype):
     """Bandwidths, triangles and the default chunking of an ILU(0) factor:
-    the carry rows are the last bw forward and the first bw backward, each
-    Wt[b] is triangular, and all other rows of WCt are zero."""
+    the carry rows are the last bw forward and the first bw backward (the
+    band sides in whole 16-byte rows), each Wt[b] is triangular, and all
+    other rows of WCt are zero."""
     _, tri, _, _, _ = _pair(name, block, dtype)
     nb = tri.wt_lo.shape[0]
     lo, up = tri.plan_lo, tri.plan_up
-    assert (lo.bw, up.bw) == _band_sides(_matrix(name))
+    assert (lo.bw, up.bw) == tuple(_carry_width(w, block, dtype)
+                                   for w in _band_sides(_matrix(name)))
     assert (lo.tri, up.tri) == (1, 2)
     assert lo.m == up.m == -(-nb // min(nb, tbt.H100_SMS))
     assert not tri.wct_lo[:, :block - lo.bw].any()
@@ -188,7 +197,7 @@ def test_exact_without_decay(dtype, which):
     nb, block, bw = 50, 16, 6
     wt, wct, f = _rotation_factor(nb, block, bw, dtype, 7)
     plan = tbt.sweep_plan(wt, wct, True, _m(which, nb))
-    assert (plan.bw, plan.tri) == (bw, 1)
+    assert (plan.bw, plan.tri) == (_carry_width(bw, block, dtype), 1)
     norms = torch.linalg.matrix_norm(plan.t.double(), ord=2)
     assert torch.allclose(norms, torch.ones_like(norms), atol=1e-5)
     _close(tbt.banded_sweep_chunked_plain(f, wt, wct, plan, True),
@@ -198,9 +207,9 @@ def test_exact_without_decay(dtype, which):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_exact_on_the_1d_laplacian(dtype):
     """The tridiagonal 1-D Laplacian tridiag(−1, 2, −1), whose ILU(0) is
-    its exact LU (bw = 1): the carry across a block of 16 stays near 1 (the
-    factors' couplings tend to −1), and the chunked sweeps match the twin
-    and the JAX kernels."""
+    its exact LU (bw = 1, carried as one 16-byte row): the carry across a
+    block of 16 stays near 1 (the factors' couplings tend to −1), and the
+    chunked sweeps match the twin and the JAX kernels."""
     n = 1000
     a = _csr_from_dense(2.0 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1))
     m = ilu0_factorize(a)
@@ -216,7 +225,9 @@ def test_exact_on_the_1d_laplacian(dtype):
     for fw, wt, wct in ((True, tri.wt_lo, tri.wct_lo),
                         (False, tri.wt_up, tri.wct_up)):
         one = tbt.sweep_plan(wt, wct, fw, 1)
-        assert one.bw == 1 and float(one.t.abs().median()) > 0.9
+        corner = -1 if fw else 0   # the one carry row that is not zero
+        assert one.bw == _carry_width(1, 16, dtype)
+        assert float(one.t[:, corner, corner].abs().median()) > 0.9
         for m in (1, 3, nb):
             plan = tbt.sweep_plan(wt, wct, fw, m)
             y = tbt.banded_sweep_chunked_plain(f, wt, wct, plan, fw)
