@@ -13,14 +13,16 @@ script exits non-zero:
    native parser/factorizer (g++), all at once, from this checkout;
 3. stencil kernel parity: B1 and B2 against their plain PyTorch twins on the
    card, in f32 and f64, at the mat10000-sized layout and at the flagship
-   layout, bitwise; times of kernel, twin and the library call (median of
-   20 after a warm-up, CUDA events) and each kernel's bound; a small f64
-   solve on the card against the same solve on the CPU (plain twins);
+   layout, bitwise; times of kernel, twin and the library call and each
+   kernel's bound (see "Times" below); a small f64 solve on the card
+   against the same solve on the CPU (plain twins);
 4. main path 1, the flagship: grid_laplacian(100000, 100) (10M rows),
    Neumann-ILU k=4, MILU omega 0.96, f32, tol 1e-4 — solved twice, then
    refined to a true f64 relative residual <= 1e-6; the launch counts must
    show that B1 and B2 carried every matvec and msolve; then the cost of
-   the solver's per-iteration host poll;
+   the solver's per-iteration host poll, and a torch.profiler trace of 30
+   iterations split into the stencil kernel, the msolve kernels, the dots,
+   the elementwise passes, other device work and idle;
 5. banded trisolve parity: B4a and B4b (forward and backward) against their
    sequential twins and the chunked plain version of their algorithm in
    f32 and f64 at the mat10000 layout and the 1M-row layout, within 1e-5
@@ -50,28 +52,37 @@ script exits non-zero:
    with and without <y, y>) against their twins, bitwise, pad blocks zero,
    in f32 and f64, at the mat10000 layout and at the flagship's fuse_blas1
    layout; B6 also equal to B1 and the same over two launches; times and
-   bounds;
+   bounds; B1 on the mono preconditioner's 37 terms against its twin;
 10. main path 4a, the flagship with the loop's opt-in fusions: a
    fuse_blas1 solver's solves (i) fuse_blas1 and (ii) fuse_blas1 +
    fused_dots + check_halves=False, and on path 1's solver (iii) fused_dots
    and (iv) check_halves=False; the launches show B5 and B6 carrying every
    msolve and matvec of their loops; (ii) refined to <= 1e-6; then a
-   prefer_mono solve of the mat10000 grid, card against CPU, in f64;
+   prefer_mono solve of the mat10000 grid, card against CPU, in f64 (its
+   37-term B1 stencil is checked against B1's twin in phase 9);
 11. 2-D stencil parity: B7 (StencilOperator2D) against its twin, bitwise,
-   ring zero, in f32 and f64, constant and variable coefficients, at the
-   3163 x 3163 grid, and its A x equal to B1's on the same grid; times, the
-   bound and torch.mv of the same matrix in sparse CSR;
+   ring zero, the same over two launches, in f32 and f64, constant and
+   variable coefficients, at the 3163 x 3163 grid, and its A x equal to
+   B1's on the same grid, B1 there against its own twin; times and bounds
+   of both in f32 and f64 (f64 is path 4b's dtype) and torch.mv of the
+   same matrix in sparse CSR;
 12. main path 4b, StencilOperator2D in place of a matrix: the mat10000 grid
    solved by the h-form loop in both modes, card against CPU and the golden;
    then the 3163 x 3163 grid (10M rows) in f64, tol 1e-6, on B7 beside
-   bicgstab of grid_laplacian(3163, 3163) on B1.
+   bicgstab of grid_laplacian(3163, 3163) on B1; after the path's launch
+   counts are read, a profile of 30 iterations of each loop as in 4.
 
-The line before last is a JSON object with each kernel's launches, error,
-times and bound; the last line is {"ok": true, "device": {...}}.
+Times: a kernel's ``ms`` is the median time between CUDA events around one
+call of its front end, the host's work in between included (as twins and
+library calls are timed); ``device_ms`` beside it is its device time alone
+(one call captured in a CUDA graph, the mean over 50 replays).  The line before last is a JSON object with each kernel's
+launches, error, times and bound; the last line is {"ok": true, "device":
+{...}}.
 """
 
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import os
 import statistics
@@ -97,6 +108,9 @@ from cuda_mat_tpu_torch.utils.timing import PhaseTimer
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = (100000, 100)      # grid rows, cols: 10M rows, 50M nonzeros
 ITERS = (33, 63)              # the flagship's 48 iterations (a TPU run) ± 15
+FLAGSHIP_CFG = ct.SolverConfig(maxit=2000, tol=1e-4, dtype="float32",
+                               precond="ilu0_neumann", neumann_terms=4,
+                               milu_omega=0.96)
 SMALL = (100, 100)            # the mat10000 grid
 ONE_M = (10000, 100)          # 1M rows, bandwidth 100
 # exact ILU(0), B=128, b = ones, tol 1e-4: the JAX package's CPU solves of
@@ -151,6 +165,7 @@ FMA_PAIRS = [(0.73, -1.21), (-0.4, 0.0), (0.0, 5.0)]   # test_neumann.py:265
 # apart
 HFORM_10M_ITERS = (4200, 6300)
 HFORM_10M_APART = 0.15
+PROFILE_ITERS = 30            # iterations of a loop_split profile
 
 
 @contextlib.contextmanager
@@ -162,7 +177,9 @@ def phase(timer, name):
 
 
 def cuda_ms(fn, reps=20):
-    """Median device time of ``fn`` in ms, after one warm-up call."""
+    """Median time in ms between CUDA events recorded before and after one
+    call of ``fn`` (after one warm-up call): the card's time from the
+    call's first launch to its last, and the host's work between them."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -175,6 +192,39 @@ def cuda_ms(fn, reps=20):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=50):
+    """Device time of one call of ``fn`` in ms: the call captured once in a
+    CUDA graph (after a warm-up on a side stream), then ``reps`` replays
+    back to back between two CUDA events.  Unlike cuda_ms it leaves out the
+    host's work between launches, which for a short kernel behind a Python
+    front end is most of cuda_ms."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def kernel_times(fn):
+    """``{"ms": cuda_ms(fn), "device_ms": device_ms(fn)}``: the time from
+    launch to launch of the kernel's front end (host work included), and
+    the kernel's own time on the card."""
+    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
 
 
 def poison_allocator(like):
@@ -202,9 +252,9 @@ def torch_csr(indptr, indices, data, n, dtype):
 
 def library_time(stats, name, call, label, check):
     """Time one PyTorch call computing the kernel's function (it is used
-    nowhere in the port).  ``check(out)`` returns its difference from the
-    kernel, printed.  A call the installed torch refuses is recorded as
-    ``none: <error>``."""
+    nowhere in the port), from launch to launch as a kernel's ``ms``.
+    ``check(out)`` returns its difference from the kernel, printed.  A
+    call the installed torch refuses is recorded as ``none: <error>``."""
     try:
         out = call()
         torch.cuda.synchronize()
@@ -214,8 +264,9 @@ def library_time(stats, name, call, label, check):
         return
     ms = cuda_ms(call)
     stats[name].update(library_ms=ms, library=label)
-    print(f"{name} library call {label}: {ms:.4f} ms, max|library - kernel|"
-          f" / max|kernel| = {check(out)!r}", flush=True)
+    print(f"{name} library call {label}: {ms:.4f} ms (launch to launch),"
+          f" max|library - kernel| / max|kernel| = {check(out)!r}",
+          flush=True)
 
 
 def kernel_parity(ps, dtype, tag, stats, timed):
@@ -248,9 +299,10 @@ def kernel_parity(ps, dtype, tag, stats, timed):
         err = float((yk - yp).abs().max())
         line = f"{tag} {str(dtype)[6:]} {name}: max|kernel - twin| = {err!r}"
         if timed:
-            ms, pms = cuda_ms(kern), cuda_ms(plain)
-            stats[name].update(ms=ms, plain_ms=pms)
-            line += f", kernel {ms:.4f} ms, twin {pms:.4f} ms"
+            t, pms = kernel_times(kern), cuda_ms(plain)
+            stats[name].update(**t, plain_ms=pms)
+            line += (f", kernel {t['ms']:.4f} ms (device"
+                     f" {t['device_ms']:.4f}), twin {pms:.4f} ms")
         print(line, flush=True)
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
         if err != 0.0:
@@ -312,6 +364,75 @@ def poll_cost(ps, b, iters):
         if not poll:
             out["enqueue"] = (t1 - t0) * 1e3 / iters
     return out
+
+
+# device kernels by name: which part of an iteration each one is
+SPLIT_PARTS = (("stencil", ("const_stencil_spmv", "stencil2d")),
+               ("msolve", ("msolve", "banded", "chunk_", "dia_spmv")),
+               ("dots", ("dot", "reduce")),
+               ("elementwise", ("elementwise",)))
+
+
+def loop_split(tag, run):
+    """Profile ``run()`` (a solve cut to a few iterations) with
+    torch.profiler and print each iteration's device split: the stencil
+    kernel, the msolve kernels, the dots, the elementwise passes, other
+    device work, and idle (the span from the first device event to the last
+    that no event covers).  The trace goes to cuda_mat_tpu_torch/build/
+    (git-ignored)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        r = run()
+        torch.cuda.synchronize()
+    out = os.path.join(ROOT, "cuda_mat_tpu_torch", "build")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "trace_" + "".join(
+        ch if ch.isalnum() else "_" for ch in tag) + ".json")
+    prof.export_chrome_trace(path)
+    print(f"{tag} profile, {r.iters} iterations, ms/iter:"
+          f" {trace_split(path, r.iters)}; trace {path}", flush=True)
+
+
+def trace_split(path, iters):
+    """Each iteration's device split in a chrome trace of ``iters``
+    iterations of a loop (see loop_split), as printable text."""
+    with open(path) as f:
+        evs = [e for e in json.load(f)["traceEvents"]
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+               and "dur" in e]
+    kern = [e for e in evs if e["cat"] == "kernel"]
+    if not kern:
+        return "no device kernels in the trace"
+    # the loop's window: from the last upload (b and x0) or the first
+    # kernel to the last kernel, so the download of x after it stays out
+    w0 = max([min(e["ts"] for e in kern)]
+             + [e["ts"] + e["dur"] for e in evs if "HtoD" in e["name"]])
+    w1 = max(e["ts"] + e["dur"] for e in kern)
+    parts = {k: 0.0 for k, _ in SPLIT_PARTS}
+    parts["other"] = 0.0
+    spans = []
+    for e in evs:
+        t0, t1 = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
+        if t1 <= t0:
+            continue
+        name = e["name"].lower()
+        part = next((k for k, keys in SPLIT_PARTS
+                     if any(w in name for w in keys)), "other")
+        parts[part] += t1 - t0
+        spans.append((t0, t1))
+    busy, end = 0.0, w0
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    window = w1 - w0
+    it = max(iters, 1)
+    split = ", ".join(f"{k} {v / 1e3 / it:.4f}" for k, v in parts.items())
+    return (f"{split}, idle {(window - busy) / 1e3 / it:.4f} of"
+            f" {window / 1e3 / it:.4f} ({(window - busy) / window:.1%}"
+            " idle)")
 
 
 def band_sides(csr):
@@ -376,12 +497,13 @@ def trisolve_parity(tri, csr, tag, stats, timed):
                 f" {err!r} ({rel!r} of max|twin|), against the chunked plain"
                 f" version {rel_c!r}; two launches bitwise equal")
         if timed and what != " backward":
-            ms = cuda_ms(kern)
+            t = kernel_times(kern)
             pms = cuda_ms(plain, reps=5)
             cms = cuda_ms(chunked, reps=5)
-            stats[name].update(ms=ms, plain_ms=pms, chunked_plain_ms=cms)
-            line += (f", kernel {ms:.4f} ms, twin {pms:.4f} ms (median of 5),"
-                     f" chunked plain {cms:.4f} ms")
+            stats[name].update(**t, plain_ms=pms, chunked_plain_ms=cms)
+            line += (f", kernel {t['ms']:.4f} ms (device"
+                     f" {t['device_ms']:.4f}), twin {pms:.4f} ms (median of"
+                     f" 5), chunked plain {cms:.4f} ms")
         print(line, flush=True)
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
         if not max(rel, rel_c) <= TRISOLVE_BOUND[dtype]:
@@ -667,16 +789,18 @@ def dia_bench(stats, smi):
     x = np.random.default_rng(4).standard_normal(op.n)
     xk = op.pad_vec(x)
     args = (op.data, xk, op.offsets, op.block, op.sub)
-    ms = cuda_ms(lambda: ds.dia_spmv_block_padded(*args))
+    t = kernel_times(lambda: ds.dia_spmv_block_padded(*args))
+    ms = t["ms"]
     pms = cuda_ms(lambda: ds.dia_spmv_block_padded_plain(*args))
-    stats["dia_spmv"].update(ms=ms, plain_ms=pms)
+    stats["dia_spmv"].update(**t, plain_ms=pms)
     # the diagonals read once, x read once and y written once
     item = xk.element_size()
     stats["dia_spmv"].update(bound(
         (op.data.numel() + 2 * xk.numel()) * item,
         2 * len(op.offsets) * op.npad))
     gbps = (5 * op.n + 2 * op.n) * 4 / (ms * 1e-3) / 1e9
-    print(f"bench 10M layout dia_spmv f32: kernel {ms:.4f} ms, twin"
+    print(f"bench 10M layout dia_spmv f32: kernel {ms:.4f} ms (device"
+          f" {t['device_ms']:.4f}), twin"
           f" {pms:.4f} ms, bound {stats['dia_spmv']['bound_ms']:.4f} ms"
           f" ({stats['dia_spmv']['bound_by']}); bench byte model"
           f" (5n + 2n)·4 B / t = {gbps:.1f} GB/s; {smi}", flush=True)
@@ -875,24 +999,27 @@ def fusion_parity(ps, dtype, tag, stats, timed):
                     torch.tensor(-0.5, dtype=dtype, device=DEVICE)
                     if three else None, cv if three else None, *layout)
             t[three] = (
-                cuda_ms(lambda: st.const_series_msolve_fma_padded(*args)),
+                kernel_times(lambda: st.const_series_msolve_fma_padded(
+                    *args)),
                 cuda_ms(lambda: st.const_series_msolve_fma_padded_plain(
                     *args)),
                 bound((6 if three else 5) * vec + ge,
                       ((4 if three else 2) + 2 * n2 + 2) * av.numel()))
             print(f"{tag} const_series_msolve_fma, {3 if three else 2}"
-                  f" streams: kernel {t[three][0]:.4f} ms, twin"
+                  f" streams: kernel {t[three][0]['ms']:.4f} ms (device"
+                  f" {t[three][0]['device_ms']:.4f}), twin"
                   f" {t[three][1]:.4f} ms, bound"
                   f" {t[three][2]['bound_ms']:.4f} ms"
                   f" ({t[three][2]['bound_by']})", flush=True)
         stats["const_series_msolve_fma"].update(
-            ms=t[True][0], plain_ms=t[True][1], **t[True][2],
-            ms_two_streams=t[False][0], bound_ms_two_streams=t[False][2][
-                "bound_ms"], library_ms=None,
+            **t[True][0], plain_ms=t[True][1], **t[True][2],
+            ms_two_streams=t[False][0]["ms"],
+            bound_ms_two_streams=t[False][2]["bound_ms"], library_ms=None,
             library="none: no one PyTorch call computes the combination"
             " and the polynomial msolve")
-        ms = cuda_ms(lambda: st.const_stencil_spmv_dots_padded(
+        t6 = kernel_times(lambda: st.const_stencil_spmv_dots_padded(
             av, gap, (bv,), *spmv, with_self=True))
+        ms = t6["ms"]
         pms = cuda_ms(lambda: st.const_stencil_spmv_dots_padded_plain(
             av, gap, (bv,), *spmv, with_self=True))
         grid = av.numel() // _kernels.DOTS_BLOCK
@@ -900,12 +1027,13 @@ def fusion_parity(ps, dtype, tag, stats, timed):
                    + 2 * grid * av.element_size(),
                    (2 * len(op.strided_terms) + 4) * av.numel())
         stats["const_stencil_spmv_dots"].update(
-            ms=ms, plain_ms=pms, **b6, library_ms=None,
+            **t6, plain_ms=pms, **b6, library_ms=None,
             library="none: no one PyTorch call computes the SpMV with its"
             " dots")
         print(f"{tag} const_stencil_spmv_dots (one weight and <y, y>, the"
-              f" partials' torch.sum included): kernel {ms:.4f} ms, twin"
-              f" {pms:.4f} ms, bound {b6['bound_ms']:.4f} ms"
+              f" partials' torch.sum included): kernel {ms:.4f} ms (device"
+              f" {t6['device_ms']:.4f}), twin {pms:.4f} ms, bound"
+              f" {b6['bound_ms']:.4f} ms"
               f" ({b6['bound_by']})", flush=True)
 
 
@@ -939,21 +1067,47 @@ def fusion_solve(ps, b, tag, want, ms_path1):
     return r
 
 
+MONO_CFG = ct.SolverConfig(maxit=2000, tol=1e-8, dtype="float64",
+                           precond="ilu0_neumann", neumann_terms=4,
+                           milu_omega=0.96)
+
+
+def mono_setup(a, d):
+    """The operator of ``a`` and its "mono" preconditioner
+    (from_csr(prefer_mono=True)) on device ``d``."""
+    op = ct.make_solver(a, MONO_CFG, device=d).op
+    pre = pre_mod.NeumannILUPreconditioner.from_csr(
+        a, terms=4, pad_like=op, prefer_mono=True, milu_omega=0.96)
+    if pre.fused != "mono":
+        raise RuntimeError(f"prefer_mono gave fused={pre.fused!r}")
+    return op, pre
+
+
+def mono_parity(dev):
+    """B1 on the mono preconditioner's wide stencil of the mat10000 grid
+    against its twin, bitwise."""
+    a = ct.grid_laplacian(*SMALL)
+    m = mono_setup(a, dev)[1].nl
+    xm = m.pad_vec(np.random.default_rng(0).uniform(1.0, 5.0, a.n))
+    args = (xm, m.gapmask, m.strided_terms, m.np_true, m.block, m.sub)
+    poison_allocator(xm)
+    if not torch.equal(st.const_stencil_spmv_padded(*args),
+                       st.const_stencil_spmv_padded_plain(*args)):
+        raise RuntimeError("mono: B1 differs from its twin on the"
+                           f" {len(m.strided_terms)}-term stencil")
+    print(f"mono layout const_stencil_spmv ({len(m.strided_terms)} terms):"
+          " equal to its twin", flush=True)
+
+
 def mono_solve(dev):
     """The mat10000 grid's f64 solve with the "mono" preconditioner
     (from_csr(prefer_mono=True)), card against CPU."""
     a = ct.grid_laplacian(*SMALL)
-    cfg64 = ct.SolverConfig(maxit=2000, tol=1e-8, dtype="float64",
-                            precond="ilu0_neumann", neumann_terms=4,
-                            milu_omega=0.96)
+    cfg64 = MONO_CFG
     b = np.random.default_rng(0).uniform(1.0, 5.0, a.n)
     res = {}
     for d in (dev, "cpu"):
-        op = ct.make_solver(a, cfg64, device=d).op
-        pre = pre_mod.NeumannILUPreconditioner.from_csr(
-            a, terms=4, pad_like=op, prefer_mono=True, milu_omega=0.96)
-        if pre.fused != "mono":
-            raise RuntimeError(f"prefer_mono gave fused={pre.fused!r}")
+        op, pre = mono_setup(a, d)
         c0 = counts()
         res[d] = bs.PreparedSolver(a, op, pre, cfg64, 0.0).solve(b)
         if d == dev:
@@ -975,13 +1129,44 @@ def mono_solve(dev):
 def stencil2d_parity(ps3, a3, stats, smi):
     """B7 against its twin at the 3163 x 3163 grid, bitwise, ring zero, in
     f32 and f64, constant and variable coefficients; its unpadded A·x equal
-    to B1's (``ps3.op``) on the same x; f32 times, bounds and torch.mv."""
+    to B1's (``ps3.op``) on the same x; B1 against its own twin there too.
+    Times and bounds of both kernels in f32 and f64 (f64 is path 4b's
+    dtype) and torch.mv."""
     x = np.random.default_rng(6).standard_normal(a3.n)
     y_b1 = {}
     for dtype in (torch.float32, torch.float64):
         o = dataclasses.replace(ps3.op, gapmask=ps3.op.gapmask.to(dtype),
                                 vec_dtype=dtype)
-        y_b1[dtype] = o.unpad_vec(o.matvec(o.pad_vec(x)))
+        xp = o.pad_vec(x)
+        args = (xp, o.gapmask, o.strided_terms, o.np_true, o.block, o.sub)
+        poison_allocator(xp)
+        yk = st.const_stencil_spmv_padded(*args)
+        yp = st.const_stencil_spmv_padded_plain(*args)
+        torch.cuda.synchronize()
+        err = float((yk - yp).abs().max())
+        stats["const_stencil_spmv"]["max_abs_err"] = max(
+            stats["const_stencil_spmv"]["max_abs_err"], err)
+        y_b1[dtype] = o.unpad_vec(yk)
+        t = kernel_times(lambda: st.const_stencil_spmv_padded(*args))
+        ms = t["ms"]
+        pms = cuda_ms(lambda: st.const_stencil_spmv_padded_plain(*args))
+        b1 = bound(2 * xp.numel() * xp.element_size()
+                   + o.gapmask.numel() * o.gapmask.element_size(),
+                   2 * len(o.strided_terms) * o.npad)
+        dt = str(dtype)[6:]
+        stats["const_stencil_spmv"].update(
+            {f"ms_{BENCH_SIDE}_{dt}": ms,
+             f"device_ms_{BENCH_SIDE}_{dt}": t["device_ms"],
+             f"bound_ms_{BENCH_SIDE}_{dt}": b1["bound_ms"]})
+        print(f"{BENCH_SIDE}^2 layout {dt} const_stencil_spmv (stride"
+              f" {o.stride} sub {o.sub} block {o.block} npad {o.npad}):"
+              f" max|kernel - twin| = {err!r}; kernel {ms:.4f} ms (device"
+              f" {t['device_ms']:.4f}), twin {pms:.4f} ms, bound"
+              f" {b1['bound_ms']:.4f} ms"
+              f" ({b1['bound_by']}); {smi}", flush=True)
+        if err != 0.0 or not torch.isfinite(yk).all():
+            raise RuntimeError(f"{BENCH_SIDE}^2 {dt} const_stencil_spmv:"
+                               " differs from its twin (bitwise required)")
     for constant in (True, False):
         for dtype in (torch.float32, torch.float64):
             op = ct.StencilOperator2D.laplacian(BENCH_SIDE, BENCH_SIDE, dtype,
@@ -992,10 +1177,12 @@ def stencil2d_parity(ps3, a3, stats, smi):
                     op.r, op.c)
             poison_allocator(xp)
             yk = t2d.stencil_spmv_padded(*args)
+            yk2 = t2d.stencil_spmv_padded(*args)
             yp = t2d.stencil_spmv_padded_plain(*args)
             torch.cuda.synchronize()
+            dt = str(dtype)[6:]
             tag = (f"{BENCH_SIDE}^2 {'constant' if constant else 'variable'}"
-                   f" {str(dtype)[6:]} stencil2d_spmv (padded"
+                   f" {dt} stencil2d_spmv (padded"
                    f" {op.rp + 2 * op.tr}x{op.cp + 2 * op.tc})")
             if not torch.isfinite(yk).all():
                 raise RuntimeError(f"{tag}: non-finite kernel output")
@@ -1007,24 +1194,29 @@ def stencil2d_parity(ps3, a3, stats, smi):
                     f" the grid = {d1!r}")
             stats["stencil2d_spmv"]["max_abs_err"] = max(
                 stats["stencil2d_spmv"]["max_abs_err"], err)
-            if dtype == torch.float32:
-                ms = cuda_ms(lambda: t2d.stencil_spmv_padded(*args))
-                pms = cuda_ms(lambda: t2d.stencil_spmv_padded_plain(*args))
-                b7 = bound((2 * xp.numel() + op.coeffs.numel())
-                           * xp.element_size(),
-                           2 * len(op.offsets) * op.rp * op.cp)
-                line += (f"; kernel {ms:.4f} ms, twin {pms:.4f} ms, bound"
-                         f" {b7['bound_ms']:.4f} ms ({b7['bound_by']})")
-                if constant:
-                    stats["stencil2d_spmv"].update(ms=ms, plain_ms=pms, **b7)
-                else:
-                    stats["stencil2d_spmv"].update(
-                        ms_variable=ms, plain_ms_variable=pms,
-                        bound_ms_variable=b7["bound_ms"])
+            t = kernel_times(lambda: t2d.stencil_spmv_padded(*args))
+            ms = t["ms"]
+            pms = cuda_ms(lambda: t2d.stencil_spmv_padded_plain(*args))
+            b7 = bound((2 * xp.numel() + op.coeffs.numel())
+                       * xp.element_size(),
+                       2 * len(op.offsets) * op.rp * op.cp)
+            line += (f"; kernel {ms:.4f} ms (device"
+                     f" {t['device_ms']:.4f}), twin {pms:.4f} ms, bound"
+                     f" {b7['bound_ms']:.4f} ms ({b7['bound_by']})")
+            if dtype == torch.float32 and constant:
+                stats["stencil2d_spmv"].update(**t, plain_ms=pms, **b7)
+            else:
+                key = f"{'' if constant else 'variable_'}{dt}"
+                stats["stencil2d_spmv"].update(
+                    {f"ms_{key}": ms, f"device_ms_{key}": t["device_ms"],
+                     f"plain_ms_{key}": pms,
+                     f"bound_ms_{key}": b7["bound_ms"]})
             print(line, flush=True)
-            if err != 0.0 or torch.count_nonzero(ring) or d1 != 0.0:
-                raise RuntimeError(f"{tag}: differs from its twin or from B1,"
-                                   " or the ring is not zero")
+            if err != 0.0 or torch.count_nonzero(ring) or d1 != 0.0 \
+                    or not torch.equal(yk, yk2):
+                raise RuntimeError(f"{tag}: differs from its twin, from B1"
+                                   " or from its own second launch, or the"
+                                   " ring is not zero")
     a_t = torch_csr(a3.indptr, a3.indices, a3.data, a3.n, torch.float32)
     x_t = torch.from_numpy(x).to(torch.float32).to(DEVICE)
     library_time(stats, "stencil2d_spmv", lambda: torch.mv(a_t, x_t),
@@ -1094,10 +1286,26 @@ def hform_10m(ps3, a3, dev):
                            f" {it1}: more than {HFORM_10M_APART:.0%} apart")
 
 
+def hform_10m_profile(ps3, a3, dev):
+    """A profile of PROFILE_ITERS iterations of each of hform_10m's loops
+    (loop_split)."""
+    b = np.ones(a3.n)
+    op = ct.StencilOperator2D.laplacian(BENCH_SIDE, BENCH_SIDE, torch.float64,
+                                        device=dev)
+    cut = ps3._config.replace(maxit=PROFILE_ITERS)
+    loop_split(f"{BENCH_SIDE}^2 h-form on B7",
+               lambda: ct.solve(op, b, cut, device=dev))
+    loop_split(f"{BENCH_SIDE}^2 h-form on B1", lambda: bs.PreparedSolver(
+        a3, ps3.op, ps3.pre, cut, ps3.dt_setup).solve(b))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # a fatal signal (a fault in native or library code) prints the Python
+    # stack of each thread to stderr before the process dies
+    faulthandler.enable()
     timer = PhaseTimer()
     with phase(timer, "card"):
         smi = subprocess.run(
@@ -1123,9 +1331,7 @@ def main():
                                " in full f32")
 
     dev = torch.device(DEVICE)
-    cfg = ct.SolverConfig(maxit=2000, tol=1e-4, dtype="float32",
-                          precond="ilu0_neumann", neumann_terms=4,
-                          milu_omega=0.96)
+    cfg = FLAGSHIP_CFG
     stats = {k: {"max_abs_err": 0.0} for k in KERNELS}
 
     with phase(timer, "stencil kernel parity"):
@@ -1207,6 +1413,9 @@ def main():
               f" {pc['no_poll']:.4f} ms/it without (host enqueue"
               f" {pc['enqueue']:.4f} ms/it); poll costs"
               f" {pc['poll'] - pc['no_poll']:.4f} ms/it")
+        cut = bs.PreparedSolver(a, ps.op, ps.pre,
+                                cfg.replace(maxit=PROFILE_ITERS), ps.dt_setup)
+        loop_split("flagship", lambda: cut.solve(b))
     ms_path1 = r.dt_alg * 1e3 / r.iters
 
     with phase(timer, "fusion kernel parity"):
@@ -1221,6 +1430,7 @@ def main():
         for dt in (torch.float32, torch.float64):
             fusion_parity(ps_f, dt, "flagship fuse_blas1 layout", stats,
                           timed=dt == torch.float32)
+        mono_parity(dev)
 
     # ---- main path 4a: the flagship with the loop's opt-in fusions
     reset_counts()
@@ -1392,6 +1602,8 @@ def main():
     path4b = counts()
     check_counted("main path 4b (StencilOperator2D)", path4b,
                   ("stencil2d_spmv", "const_stencil_spmv"))
+    with phase(timer, "10M h-form profiles"):
+        hform_10m_profile(ps3, a3, dev)
 
     paths = (path1, path2, path3, path4a, path4b)
     print(json.dumps({"kernels": [

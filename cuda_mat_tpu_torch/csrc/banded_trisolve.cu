@@ -64,7 +64,16 @@
 
 #include <cstdint>
 
+#include "tma_ring.cuh"
+
 namespace {
+
+// TMA bulk copies completing on an mbarrier (16-byte aligned layouts)
+using cmt::bulk_copy;
+using cmt::mbar_expect;
+using cmt::mbar_init;
+using cmt::mbar_wait;
+using cmt::smem_addr;
 
 constexpr int kBadArgs = -1;
 constexpr int kMaxBlock = 1024;          // one thread per column j
@@ -76,10 +85,6 @@ __device__ __forceinline__ float fma_t(float a, float b, float c) {
 }
 __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 // --- cp.async of 16 bytes, or of one element (unaligned layouts)
@@ -109,47 +114,6 @@ __device__ __forceinline__ void cp_wait(int n) {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   else
     asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-}
-
-// --- TMA bulk copies completing on an mbarrier (16-byte aligned layouts)
-__device__ __forceinline__ void mbar_init(std::uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(std::uint64_t* bar,
-                                            unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(std::uint64_t* bar,
-                                          unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
-                                          unsigned bytes,
-                                          std::uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
-      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // One stage's worth of a walk: `rows` rows of width W starting at `mat`
@@ -228,7 +192,7 @@ __device__ __forceinline__ void run_ring(int n, int S, int cap, int W,
                                          Describe describe, Consume consume) {
   if (E > 1 && threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) mbar_init(bars + i);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    cmt::mbar_fence_init();
   }
   __syncthreads();
   for (int i = 0; i < S - 1; ++i) {

@@ -20,6 +20,10 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "tma_ring.cuh"
+
 namespace {
 
 constexpr int kMaxTerms = 64;
@@ -45,10 +49,8 @@ bool fill_terms(Terms* t, const long long* off, const double* c, int n) {
   return true;
 }
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+using cmt::add_rn;
+using cmt::mul_rn;
 
 // sum_k c_k * v[i + off_k] in term order (the JAX kernels' order), every
 // product and partial sum rounded on its own.
@@ -64,26 +66,171 @@ __device__ __forceinline__ T stencil_sum(const Terms& t, const T* v,
 // B1. Replaces const_stencil_spmv_padded / _const_stencil_kernel
 // (cuda_mat_tpu/ops/pallas_stencil.py:306, :262):
 //   y[j] = gap(q) * sum_k c_k x[j + off_k]   for strided row q = j - block,
-//   0 in the pad blocks and for global rows base + q >= np_true.
-// Bound by device memory: about 8 bytes per element in f32 (read x once,
-// write y once; the neighbouring terms' reads hit the same or adjacent cache
-// lines, and the gap mask stays in L2).  One thread per output element keeps
-// neighbouring threads on neighbouring addresses, so every access coalesces.
+//   0 in the pad blocks and for rows q >= lim (lim = np_true - base, the
+//   shard's tail, clipped to [0, npad]).
+// Bound by device memory: x read once and y written once (8 bytes per
+// element in f32, 16 in f64; the gap mask, one block long, stays in L2).
+// On Hopper the parent design (one thread per element, 64-bit indices and a
+// 64-bit modulo per element, 4-byte accesses, every neighbour re-read
+// through L1/L2) reached 30-40% of that bound.  What this design does:
+//   * x is streamed once.  Each of `ctas` persistent thread blocks (up to
+//     four per SM) owns one contiguous run of tiles (`tile` elements, a
+//     power of two dividing block, 4-8 KB) and pulls its run, plus `halo`
+//     tiles on each side, through a ring of `stages` tiles in shared
+//     memory: one TMA bulk copy per tile, completing on the tile's
+//     mbarrier, issued `stages - 2 halo - 1` tiles ahead of the computed
+//     one.  Even blocks walk their run forward and odd ones backward, so
+//     the halo tiles two neighbours share are loaded by both at about the
+//     same time and the second load hits L2.  A term whose offset reaches
+//     past the ring's halo (|off| > halo * tile: only where the ring would
+//     not fit shared memory) reads x from device memory.
+//   * Shared-memory reads without bank conflicts: thread t computes
+//     elements t + 256u (u < P) of a tile; the tile at element T * tile
+//     sits in slot T % stages, so a read is one add and a wrap.
+//   * 16-byte stores: a computed tile goes to one of two staging tiles in
+//     shared memory and from there to y as whole 16-byte words; the pad
+//     blocks are written as zero words without reading x.
+//   * 32-bit indices (the wrapper refuses npad + 2 block >= 2^31), one
+//     modulo per tile (a tile never straddles a layout block, so gap's
+//     index is (start - block) % block plus the element's place in the
+//     tile), and terms as 32-bit offsets with coefficients already in T
+//     (rounded on the host, as the twin rounds them), held in shared memory
+//     and read a term ahead.
+// The terms are summed in their order, every product and sum rounded on its
+// own, so y equals the twin's bit for bit.
+constexpr int kStreamThreads = 256;
+
 template <typename T>
-__global__ void const_stencil_spmv_kernel(const T* __restrict__ x,
-                                          const T* __restrict__ gap,
-                                          T* __restrict__ y,
-                                          const __grid_constant__ Terms terms,
-                                          long long npad, long long block,
-                                          long long np_true, long long base) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (j >= npad + 2 * block) return;
-  const long long q = j - block;
-  T out = T(0);
-  if (q >= 0 && q < npad && base + q < np_true)
-    out = mul_rn(stencil_sum(terms, x, j), gap[q % block]);
-  y[j] = out;
+struct TermsT {
+  int n;
+  int off[kMaxTerms];
+  T c[kMaxTerms];
+};
+
+// P = tile / kStreamThreads elements per thread, a compile-time constant so
+// that each term's P reads issue back to back.
+template <typename T, int P>
+__global__ void __launch_bounds__(kStreamThreads, 4)
+const_stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ gap,
+                          T* __restrict__ y,
+                          const __grid_constant__ TermsT<T> t, int npad,
+                          int block, int lim, int halo, int stages) {
+  using V = typename cmt::Vec16<T>::type;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kTile = P * kStreamThreads;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the terms, one past the last read ahead of its use
+  __shared__ int s_off[kMaxTerms + 1];
+  __shared__ T s_c[kMaxTerms + 1];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* staged = ring + stages * kTile;   // two tiles of output
+  std::uint64_t* bars =
+      reinterpret_cast<std::uint64_t*>(staged + 2 * kTile);
+  const int tid = threadIdx.x;
+  const int n = t.n;
+  if (tid <= n) {
+    s_off[tid] = tid < n ? t.off[tid] : 0;
+    s_c[tid] = tid < n ? t.c[tid] : T(0);
+  }
+
+  // this block's tiles [t0, t1) of the npad / kTile inner tiles, and the
+  // halo tiles beside them: nst tiles, loaded in order from the first (even
+  // blocks) or from the last (odd blocks), so that two neighbouring blocks
+  // load the tiles they share at about the same time and the second load
+  // finds them in L2.  The tile at element T * kTile lives in slot
+  // T % stages of the ring.
+  const int ntiles = npad / kTile;
+  const int t0 = static_cast<int>(static_cast<long long>(blockIdx.x) *
+                                  ntiles / gridDim.x);
+  const int t1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) *
+                                  ntiles / gridDim.x);
+  const int nst = t1 - t0 + 2 * halo;
+  const int dir = blockIdx.x & 1 ? -1 : 1;
+  const int anchor = dir > 0 ? block / kTile + t0 - halo
+                             : block / kTile + t1 - 1 + halo;
+  constexpr unsigned kBytes = kTile * sizeof(T);
+  auto issue = [&](int k) {   // load k: the tile anchor + dir * k
+    const int tk = anchor + dir * k;
+    const int s = tk % stages;
+    cmt::mbar_expect(bars + s, kBytes);
+    cmt::bulk_copy(ring + s * kTile, x + tk * kTile, kBytes, bars + s);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) cmt::mbar_init(bars + s);
+    cmt::mbar_fence_init();
+    for (int k = 0; k < min(stages, nst); ++k) issue(k);
+  }
+
+  // the pad blocks, while the first stages load: zero words, x unread
+  const int pv = block / kVec;
+  V* yv = reinterpret_cast<V*>(y);
+  for (int v = blockIdx.x * kStreamThreads + tid; v < 2 * pv;
+       v += gridDim.x * kStreamThreads)
+    yv[v < pv ? v : v + npad / kVec] = cmt::zero16<T>();
+  __syncthreads();   // the barriers and the terms are ready
+
+  const int ring_len = stages * kTile;
+  const int reach = halo * kTile;
+  int ready = 0;   // loads this thread has seen complete
+  for (int k = 0; k < t1 - t0; ++k) {
+    const int tc = anchor + dir * (halo + k);   // the computed tile
+    const int start = tc * kTile;
+    const int q0 = start - block;
+    const int m0 = q0 % block;
+    T g[P];
+#pragma unroll
+    for (int u = 0; u < P; ++u)
+      g[u] = __ldg(gap + m0 + tid + u * kStreamThreads);
+    for (; ready <= k + 2 * halo; ++ready)
+      cmt::mbar_wait(bars + (anchor + dir * ready) % stages,
+                     (ready / stages) & 1);
+    const int base = tc % stages * kTile + tid;   // element tid in the ring
+    // term j's P products: x from the ring (or, past it, device memory)
+    auto term = [&](int off, T c, T (&v)[P]) {
+      if (off <= reach && off >= -reach) {
+#pragma unroll
+        for (int u = 0; u < P; ++u) {
+          int i = base + u * kStreamThreads + off;
+          i += i < 0 ? ring_len : 0;
+          i -= i >= ring_len ? ring_len : 0;
+          v[u] = mul_rn(c, ring[i]);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < P; ++u)
+          v[u] = mul_rn(c, __ldg(x + start + tid + u * kStreamThreads + off));
+      }
+    };
+    T acc[P];
+    term(s_off[0], s_c[0], acc);
+    int off = s_off[1];
+    T c = s_c[1];
+    for (int j = 1; j < n; ++j) {
+      const int off_next = s_off[j + 1];
+      const T c_next = s_c[j + 1];
+      T v[P];
+      term(off, c, v);
+#pragma unroll
+      for (int u = 0; u < P; ++u) acc[u] = add_rn(acc[u], v[u]);
+      off = off_next;
+      c = c_next;
+    }
+    T* out = staged + (k & 1) * kTile;
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int e = tid + u * kStreamThreads;
+      out[e] = q0 + e < lim ? mul_rn(acc[u], g[u]) : T(0);
+    }
+    // every read of load k (the tile farthest behind) and every write of
+    // `out` done: load k's slot takes load k + stages, `out` goes to y
+    __syncthreads();
+    if (tid == 0 && k + stages < nst) issue(k + stages);
+    const V* ov = reinterpret_cast<const V*>(out);
+    V* dst = reinterpret_cast<V*>(y + start);
+#pragma unroll
+    for (int u = 0; u < kTile / kVec / kStreamThreads; ++u)
+      dst[tid + u * kStreamThreads] = ov[tid + u * kStreamThreads];
+  }
 }
 
 // B2. Replaces const_series_msolve_padded / _const_msolve_kernel +
@@ -253,17 +400,59 @@ __global__ void const_series_msolve_fma_kernel(
   }
 }
 
-template <typename T>
-int launch_spmv(const void* x, const void* gap, void* y, const Terms& t,
-                long long npad, long long block, long long np_true,
-                long long base, cudaStream_t stream) {
-  const long long total = npad + 2 * block;
-  const long long grid = (total + kThreads - 1) / kThreads;
-  const_stencil_spmv_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0,
-                                 stream>>>(
+// Raise the block's dynamic shared-memory limit to `bytes` once per kernel.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
+  if (bytes <= 48 * 1024 || bytes <= *allowed) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) *allowed = bytes;
+  return err;
+}
+
+template <typename T, int P>
+int launch_spmv_p(const void* x, const void* gap, void* y,
+                  const TermsT<T>& t, int npad, int block, int lim, int halo,
+                  int stages, int ctas, cudaStream_t stream) {
+  static size_t allowed = 0;
+  constexpr int kTile = P * kStreamThreads;
+  const size_t smem = sizeof(T) * static_cast<size_t>(stages + 2) * kTile +
+                      sizeof(std::uint64_t) * stages;
+  cudaError_t err =
+      allow_smem(const_stencil_spmv_kernel<T, P>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const_stencil_spmv_kernel<T, P><<<ctas, kStreamThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(gap),
-      static_cast<T*>(y), t, npad, block, np_true, base);
+      static_cast<T*>(y), t, npad, block, lim, halo, stages);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_spmv(const void* x, const void* gap, void* y, const TermsT<T>& t,
+                int npad, int block, int lim, int log_tile, int halo,
+                int stages, int ctas, cudaStream_t stream) {
+  if (log_tile < 9 || log_tile > 11 || stages > 256) return kBadArgs;
+  const int tile = 1 << log_tile;
+  if (tile * static_cast<int>(sizeof(T)) < 16 * kStreamThreads ||
+      block % tile != 0 || npad % tile != 0 || halo < 0 ||
+      2 * halo + 2 > stages ||
+      static_cast<long long>(halo) * tile > block || ctas < 1 ||
+      ctas > npad / tile)
+    return kBadArgs;
+  for (int k = 0; k < t.n; ++k)
+    if (t.off[k] > block || t.off[k] < -block) return kBadArgs;
+  switch (log_tile) {
+    case 9:
+      return launch_spmv_p<T, 2>(x, gap, y, t, npad, block, lim, halo,
+                                 stages, ctas, stream);
+    case 10:
+      return launch_spmv_p<T, 4>(x, gap, y, t, npad, block, lim, halo,
+                                 stages, ctas, stream);
+    default:
+      return launch_spmv_p<T, 8>(x, gap, y, t, npad, block, lim, halo,
+                                 stages, ctas, stream);
+  }
 }
 
 template <typename T>
@@ -333,22 +522,42 @@ int launch_msolve_fma(const void* a, const void* b, const void* c,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int spmv_entry(const void* x, const void* gap, void* y, const int* off,
+               const void* c, int nterms, int npad, int block, int lim,
+               int log_tile, int halo, int stages, int ctas,
+               cudaStream_t s) {
+  if (nterms < 1 || nterms > kMaxTerms || block <= 0 || lim < 0 ||
+      lim > npad)
+    return kBadArgs;
+  TermsT<T> t;
+  t.n = nterms;
+  for (int k = 0; k < nterms; ++k) {
+    t.off[k] = off[k];
+    t.c[k] = static_cast<const T*>(c)[k];
+  }
+  return launch_spmv<T>(x, gap, y, t, npad, block, lim, log_tile, halo,
+                        stages, ctas, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64.
+// dtype: 0 = float32, 1 = float64.  B1: `c` holds the nterms coefficients
+// in that dtype; the geometry (tile = 2^log_tile, halo, ring stages, ctas)
+// is the wrapper's (ops/_kernels.py: spmv_plan).
 int cmt_const_stencil_spmv(int dtype, const void* x, const void* gap, void* y,
-                           const long long* off, const double* c, int nterms,
-                           long long npad, long long block, long long np_true,
-                           long long base, void* stream) {
-  Terms t;
-  if (!fill_terms(&t, off, c, nterms) || block <= 0) return kBadArgs;
+                           const int* off, const void* c, int nterms,
+                           int npad, int block, int lim, int log_tile,
+                           int halo, int stages, int ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_spmv<float>(x, gap, y, t, npad, block, np_true, base, s);
+    return spmv_entry<float>(x, gap, y, off, c, nterms, npad, block, lim,
+                             log_tile, halo, stages, ctas, s);
   if (dtype == 1)
-    return launch_spmv<double>(x, gap, y, t, npad, block, np_true, base, s);
+    return spmv_entry<double>(x, gap, y, off, c, nterms, npad, block, lim,
+                              log_tile, halo, stages, ctas, s);
   return kBadArgs;
 }
 

@@ -16,6 +16,7 @@ plain PyTorch twins and CUDA tensors here.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 from typing import Dict, Tuple
@@ -33,7 +34,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_TERMS = 64                # kMaxTerms of the kernels' by-value term struct
 MAX_DIAGS = 128               # kMaxDiags of kernel B3's by-value offsets
 SMEM_LIMIT = 232448           # dynamic shared memory one block may use on H100
+SMEM_PER_SM = 233472          # shared memory of one SM (228 KB) ...
+SMEM_RESERVED = 1024          # ... less 1 KB for each resident block
+STATIC_SMEM = 2048            # B1's and B7's static shared memory (terms)
 DOTS_BLOCK = 256              # kThreads: the rows each B6 partial sums
+STREAM_THREADS = 256          # threads of a B1 or B7 block
+STREAM_BLOCKS_PER_SM = 4      # their __launch_bounds__ minimum
+STAGE_BYTES = 8192            # one B1 ring stage: a tile of x
+ROW_BYTES = 4096              # one B7 strip row of x
+IN_FLIGHT_BYTES = 49152       # copies the rings of one SM keep in flight
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -41,11 +50,13 @@ build_seconds: Dict[str, float] = {}   # source -> seconds its build took
                                        # in this process (0 = reused)
 
 
-def _load(source: str, stem: str, signatures) -> ctypes.CDLL:
+def _load(source: str, stem: str, signatures,
+          headers: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, and declare its
     launchers' ``signatures`` (name -> argtypes; all return an int error
-    code).  Raises RuntimeError when nvcc is missing or the build fails —
-    there is no fallback."""
+    code).  ``headers``: the ``csrc/`` headers the source includes, part of
+    the build's key.  Raises RuntimeError when nvcc is missing or the build
+    fails — there is no fallback."""
     if source not in _libs:
         from torch.utils.cpp_extension import CUDA_HOME
 
@@ -54,7 +65,8 @@ def _load(source: str, stem: str, signatures) -> ctypes.CDLL:
             raise RuntimeError("nvcc not found: the CUDA kernels cannot be"
                                " built (set CUDA_HOME)")
         path, build_seconds[source] = build_library(
-            [nvcc] + NVCC_FLAGS, os.path.join(CSRC, source), stem)
+            [nvcc] + NVCC_FLAGS, os.path.join(CSRC, source), stem,
+            [os.path.join(CSRC, h) for h in headers])
         lib = ctypes.CDLL(path)
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -73,22 +85,23 @@ def library() -> ctypes.CDLL:
     """The gap-strided stencil kernels B1, B2, B5 and B6
     (``csrc/const_stencil.cu``)."""
     return _load("const_stencil.cu", "libcmt_kernels", {
-        "cmt_const_stencil_spmv": [_I, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
-                                   _LL, _P],
+        "cmt_const_stencil_spmv": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _P],
         "cmt_const_series_msolve": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                                     _I, _LL, _LL, _LL, _LL, _I, _I, _I, _P],
         "cmt_const_stencil_spmv_dots": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
                                         _LL, _LL, _LL, _LL, _I, _P],
         "cmt_const_series_msolve_fma": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _P, _I, _P, _P, _I, _LL, _LL,
-                                        _LL, _LL, _I, _I, _I, _I, _P]})
+                                        _LL, _LL, _I, _I, _I, _I, _P]},
+        headers=("tma_ring.cuh",))
 
 
 def stencil2d_library() -> ctypes.CDLL:
     """The 2-D tile-ring stencil B7 (``csrc/stencil2d.cu``)."""
     return _load("stencil2d.cu", "libcmt_stencil2d", {
-        "cmt_stencil2d_spmv": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _P]})
+        "cmt_stencil2d_spmv": [_I] + [_P] * 7 + [_I] * 18 + [_P]},
+        headers=("tma_ring.cuh",))
 
 
 def trisolve_library() -> ctypes.CDLL:
@@ -96,7 +109,7 @@ def trisolve_library() -> ctypes.CDLL:
     (``csrc/banded_trisolve.cu``)."""
     return _load("banded_trisolve.cu", "libcmt_trisolve", {
         "cmt_banded_sweep": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                             _I, _I, _I, _I, _P]})
+                             _I, _I, _I, _I, _P]}, headers=("tma_ring.cuh",))
 
 
 def dia_library() -> ctypes.CDLL:
@@ -146,6 +159,179 @@ def msolve_fma_fits(block: int, terms_l, terms_u, itemsize: int) -> bool:
             and (2 * tile + 4 * h_u + 2 * h_l) * itemsize <= SMEM_LIMIT)
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` dynamic shared memory that one SM holds at once,
+    at most STREAM_BLOCKS_PER_SM."""
+    return max(1, min(STREAM_BLOCKS_PER_SM, SMEM_PER_SM // (
+        smem + STATIC_SMEM + SMEM_RESERVED)))
+
+
+def _ahead(stage_bytes: int) -> int:
+    """Stages a ring loads ahead of use: enough for IN_FLIGHT_BYTES from
+    STREAM_BLOCKS_PER_SM blocks of an SM, 2 to 16."""
+    return min(16, max(2, _ceil(IN_FLIGHT_BYTES,
+                                STREAM_BLOCKS_PER_SM * stage_bytes)))
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmvPlan:
+    """Launch geometry of kernel B1 (``csrc/const_stencil.cu``)."""
+
+    tile: int      # elements of a ring stage: a power of two dividing
+                   # block, 4 to 8 KB of x
+    halo: int      # tiles the ring keeps on each side of the computed one
+    stages: int    # ring stages: 2·halo + 1 and those loading ahead
+    ctas: int      # persistent blocks, each with one run of tiles
+    smem: int      # dynamic shared memory of a block, in bytes
+    vec: int       # elements of one 16-byte load or store
+
+
+@functools.lru_cache(maxsize=64)
+def spmv_plan(npad: int, block: int, reach: int, itemsize: int,
+              sms: int) -> SpmvPlan:
+    """B1's geometry for a layout of ``npad`` strided rows in blocks of
+    ``block``, terms reaching ``reach`` = max|off'| elements.  A tile is
+    STAGE_BYTES of x (halved until it divides ``block``); the ring holds the
+    tiles within ``reach`` of the computed one and _ahead more.  Where that
+    ring would not fit shared memory, its halo shrinks and the farther terms
+    read device memory.  As many blocks as fit run on each SM, up to
+    STREAM_BLOCKS_PER_SM."""
+    least = 16 * STREAM_THREADS // itemsize   # a 16-byte word per thread
+    if block % least or npad % block or npad <= 0:
+        raise ValueError(f"kernel B1 takes blocks that are multiples of"
+                         f" {least} (block {block}, npad {npad})")
+    tile = STAGE_BYTES // itemsize
+    while block % tile:
+        tile //= 2
+    ahead = _ahead(tile * itemsize)
+    halo = _ceil(reach, tile)
+
+    def smem_of(h):
+        stages = 2 * h + 1 + ahead
+        return stages, (stages + 2) * tile * itemsize + 8 * stages
+
+    stages, smem = smem_of(halo)
+    while smem > SMEM_LIMIT - STATIC_SMEM and halo > 0:
+        halo -= 1
+        stages, smem = smem_of(halo)
+    ctas = min(npad // tile, sms * _blocks_per_sm(smem))
+    return SpmvPlan(tile, halo, stages, ctas, smem, 16 // itemsize)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stencil2DPlan:
+    """Launch geometry of kernel B7 (``csrc/stencil2d.cu``).  Each block
+    takes a strip of ``width`` columns and marches down ``rows`` rows of the
+    computed region [0, r_eff) x [0, cw) of the (rp, cp) grid, the rest of
+    the padded grid being written as zeros."""
+
+    vec: int       # elements of one copy or store: 16 bytes, or 1 where the
+                   # rows are not 16-byte aligned
+    r_eff: int     # rows computed (r with the mask, else rp)
+    c_eff: int     # columns computed (c with the mask, else cp) ...
+    cw: int        # ... rounded up to vec: cells in [c_eff, cw) are 0
+    width: int     # columns of a strip (a multiple of vec)
+    strips: int
+    rows: int      # rows of one block's march
+    step_rows: int  # rows a step computes: 8 / P (P = the columns each
+                    # thread computes), or 1 where that ring is too large
+    hr: int        # rows the ring keeps above and below the computed one
+    hc: int        # ring columns on each side of a strip (a multiple of vec)
+    stages: int    # x's ring stages, at least 2·hr + 2·step_rows; the
+                   # coefficients' ring has stages - 2·hr
+    slot: int      # elements of x's stage: a row over the strip and its
+                   # column halo (a coefficient stage: a row of each grid)
+    ctas: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def stencil2d_plan(rp: int, cp: int, tr: int, tc: int, r: int, c: int,
+                   mask: bool, offsets, itemsize: int, sms: int,
+                   aligned: bool = True) -> Stencil2DPlan:
+    """B7's geometry for ``offsets`` ((dr, dc, scal or None)) on the
+    tile-ring layout.  ``aligned``: the operands' addresses are 16-byte
+    aligned; with whole 16-byte rows and tile columns too, the ring's rows
+    come by TMA bulk copies and y goes out in 16-byte words.  A strip row
+    is ROW_BYTES of x; a step computes 8 / P rows (P = the columns each of
+    STREAM_THREADS threads computes), one with variable coefficients; x's
+    ring holds a step's rows, hr on
+    each side and at least a step's rows ahead, more where that keeps
+    IN_FLIGHT_BYTES in flight; the coefficient rows, read by one step
+    each, have a ring of their own without the 2·hr halo rows.  Where
+    that does not fit shared memory
+    the ring keeps fewer rows (then fewer columns, then narrower strips),
+    and a term past it reads device memory."""
+    v16 = 16 // itemsize
+    vec = v16 if aligned and tc % v16 == 0 and cp % v16 == 0 else 1
+    r_eff, c_eff = (r, c) if mask else (rp, cp)
+    cw = _ceil(c_eff, vec) * vec
+    n_var = sum(o[2] is None for o in offsets)
+    hr = max(abs(o[0]) for o in offsets)
+    hc = _ceil(max(abs(o[1]) for o in offsets), vec) * vec
+    width = min(cw, max(vec, min(ROW_BYTES // itemsize, 4 * STREAM_THREADS)
+                            // vec * vec))
+
+    def fit(hr, hc, width, multi):
+        strips = _ceil(cw, width)
+        width = _ceil(_ceil(cw, strips), vec) * vec
+        slot = width + 2 * hc
+        load = slot + n_var * width   # elements of one load
+        per = _ceil(width, STREAM_THREADS)   # columns a thread computes
+        per = 4 if per > 2 else per
+        step = 8 // per if multi else 1
+
+        def option(ahead):   # (bytes in flight on an SM, blocks), stages
+            stages = 2 * hr + step + ahead
+            smem = ((stages * slot + (step + ahead) * n_var * width
+                     + 2 * step * width + per * STREAM_THREADS)
+                    * itemsize + 8 * stages)
+            blocks = _blocks_per_sm(smem)
+            fits = smem <= SMEM_LIMIT - STATIC_SMEM
+            return (fits, min(blocks * ahead * load * itemsize,
+                              IN_FLIGHT_BYTES), blocks), stages, smem
+
+        # at least a step's rows ahead: a stage that threads copy themselves
+        # (vec 1) is then filled a step before its first reader
+        (fits, _, blocks), stages, smem = max(option(a) for a in range(
+            step, max(step, _ahead(load * itemsize)) + 1))
+        return fits, blocks, (strips, width, step, slot, stages, smem)
+
+    # several rows a step where the coefficients are constant and the ring
+    # for them keeps two blocks on an SM.  With variable coefficients one row
+    # a step is faster even at equal blocks (an H100 at 3163² in f32, two
+    # blocks an SM: 0.136 ms one row a step, 0.162 two rows)
+    fits, blocks, geo = fit(hr, hc, width, n_var == 0)
+    if not fits or blocks < 2:
+        fits, _, geo = fit(hr, hc, width, False)
+    while not fits:
+        if hr > 0:
+            hr -= 1
+        elif hc > 0:
+            hc = 0
+        elif width > vec:
+            width = max(vec, width // 2 // vec * vec)
+        else:
+            raise ValueError("kernel B7 cannot fit one ring row in shared"
+                             " memory")
+        fits, _, geo = fit(hr, hc, width, False)
+    strips, width, step, slot, stages, smem = geo
+    ranges = max(1, round(sms * _blocks_per_sm(smem) / strips))
+    rows = _ceil(r_eff, ranges)
+    ctas = strips * _ceil(r_eff, rows)
+    return Stencil2DPlan(vec, r_eff, c_eff, cw, width, strips, rows, step,
+                         hr, hc, stages, slot, ctas, smem)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check_cuda(*ts: torch.Tensor) -> None:
     dev = ts[0].device
     for t in ts:
@@ -165,20 +351,40 @@ def _raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} (code {rc})")
 
 
+@functools.lru_cache(maxsize=64)
+def _typed_terms(terms, dtype: torch.dtype) -> Tuple[np.ndarray, np.ndarray]:
+    """B1's term arrays: 32-bit offsets, and the coefficients rounded to the
+    vectors' dtype on the host (as the twin rounds them)."""
+    return (np.asarray([t[0] for t in terms], np.int32),
+            np.asarray([t[1] for t in terms],
+                       np.float32 if dtype == torch.float32 else np.float64))
+
+
 def const_stencil_spmv(x_pad: torch.Tensor, gapmask: torch.Tensor, terms,
                        np_true: int, block: int, base: int) -> torch.Tensor:
     """Launch kernel B1 on ``x_pad``'s device and current stream."""
+    if x_pad.shape[0] >= 2 ** 31:
+        raise ValueError(f"padded length {x_pad.shape[0]} needs 64-bit"
+                         " indices; kernel B1 takes 32-bit ones")
     lib = library()
     _check_cuda(x_pad, gapmask)
     if len(terms) > MAX_TERMS:
         raise ValueError(f"{len(terms)} stencil terms > {MAX_TERMS}")
+    if x_pad.data_ptr() % 16:
+        raise ValueError("kernel B1 streams x by 16-byte copies: x_pad must"
+                         " be 16-byte aligned")
+    npad = x_pad.shape[0] - 2 * block
+    plan = spmv_plan(npad, block, max(abs(t[0]) for t in terms),
+                     x_pad.element_size(), _sm_count(x_pad.device))
     y = torch.empty_like(x_pad)
-    off, c = _term_arrays(tuple(terms))
+    off, c = _typed_terms(tuple(terms), x_pad.dtype)
     with torch.cuda.device(x_pad.device):
         rc = lib.cmt_const_stencil_spmv(
             _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(), gapmask.data_ptr(),
-            y.data_ptr(), off.ctypes.data, c.ctypes.data, len(terms),
-            x_pad.shape[0] - 2 * block, block, np_true, base,
+            y.data_ptr(), off.ctypes.data, c.ctypes.data, len(terms), npad,
+            block, min(max(np_true - base, 0), npad),
+            plan.tile.bit_length() - 1, plan.halo,
+            plan.stages, plan.ctas,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "const_stencil_spmv")
     return y
@@ -279,16 +485,16 @@ def const_series_msolve_fma(a_pad: torch.Tensor, c1: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=64)
-def _offsets2d_arrays(offsets):
+def _offsets2d_arrays(offsets, dtype: torch.dtype):
     """B7's term arrays: dr, dc, the coefficient grid of each variable term
-    (-1 for a scalar one) and the scalars."""
+    (-1 for a scalar one) and the scalars rounded to ``dtype``."""
     var = np.cumsum([o[2] is None for o in offsets]) - 1
     return (np.asarray([o[0] for o in offsets], np.int32),
             np.asarray([o[1] for o in offsets], np.int32),
             np.asarray([v if o[2] is None else -1
                         for v, o in zip(var, offsets)], np.int32),
             np.asarray([0.0 if o[2] is None else o[2] for o in offsets],
-                       np.float64))
+                       np.float32 if dtype == torch.float32 else np.float64))
 
 
 def stencil2d_spmv(coeffs: torch.Tensor, x_pad: torch.Tensor, offsets,
@@ -296,21 +502,29 @@ def stencil2d_spmv(coeffs: torch.Tensor, x_pad: torch.Tensor, offsets,
                    mask: bool) -> torch.Tensor:
     """Launch kernel B7 on ``x_pad``'s device and current stream;
     ``coeffs``: the stacked (n_var, rp, cp) variable-coefficient grids."""
+    if x_pad.shape[0] >= 2 ** 31 or coeffs.numel() >= 2 ** 31:
+        raise ValueError("the padded grid and the coefficient grids must fit"
+                         " 32-bit indices")
     lib = stencil2d_library()
     n_var = coeffs.shape[0]
     _check_cuda(x_pad, *([coeffs] if n_var else []))
     if len(offsets) > MAX_TERMS:
         raise ValueError(f"{len(offsets)} stencil terms > {MAX_TERMS}")
-    if (rp + 2 * tr) >= 2 ** 31 or (cp + 2 * tc) >= 2 ** 31:
-        raise ValueError("padded grid sides must fit 32-bit indices")
-    dr, dc, var, cs = _offsets2d_arrays(tuple(offsets))
     y = torch.empty_like(x_pad)
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x_pad, y) + ((coeffs,) if n_var else ()))
+    g = stencil2d_plan(rp, cp, tr, tc, r, c, mask, tuple(offsets),
+                       x_pad.element_size(), _sm_count(x_pad.device),
+                       aligned)
+    dr, dc, var, cs = _offsets2d_arrays(tuple(offsets), x_pad.dtype)
     with torch.cuda.device(x_pad.device):
         rc = lib.cmt_stencil2d_spmv(
             _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(),
             coeffs.data_ptr() if n_var else None, y.data_ptr(),
             dr.ctypes.data, dc.ctypes.data, var.ctypes.data, cs.ctypes.data,
-            len(offsets), tr, tc, rp, cp, r, c, int(mask),
+            len(offsets), tr, tc, rp, cp, g.r_eff, g.c_eff, g.cw, g.vec,
+            g.width, g.strips, g.rows, g.step_rows, g.hr, g.hc, g.stages,
+            g.slot, g.ctas,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "stencil2d_spmv")
     return y

@@ -13,20 +13,25 @@ import hashlib
 import os
 import subprocess
 import time
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build")
 
 
-def build_library(argv: List[str], source: str, stem: str
-                  ) -> Tuple[str, float]:
+def build_library(argv: List[str], source: str, stem: str,
+                  headers: Sequence[str] = ()) -> Tuple[str, float]:
     """Compile ``source`` with ``argv + ["-o", out, source]`` unless a build
-    of the same source and command exists.  Returns ``(path, seconds)``;
-    ``seconds`` is 0.0 when the library was already built.  Raises
-    ``RuntimeError`` with the compiler's output when the build fails."""
+    of the same source, ``headers`` (the files it includes) and command
+    exists.  Returns ``(path, seconds)``; ``seconds`` is 0.0 when the
+    library was already built.  Raises ``RuntimeError`` with the compiler's
+    output when the build fails."""
     with open(source, "rb") as f:
-        key = hashlib.sha256(f.read() + "\0".join(argv).encode()).hexdigest()
+        data = f.read()
+    for name in headers:
+        with open(name, "rb") as f:
+            data += b"\0" + f.read()
+    key = hashlib.sha256(data + "\0".join(argv).encode()).hexdigest()
     path = os.path.join(BUILD_DIR, f"{stem}-{key[:16]}.so")
     if os.path.exists(path):
         return path, 0.0

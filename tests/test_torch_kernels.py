@@ -472,3 +472,187 @@ def test_stencil2d_kernel_equals_twin_on_card(dtype, constant):
         assert torch.equal(y, t2d.stencil_spmv_padded_plain(
             op.coeffs, x, op.offsets, tr, tc, op.rp, op.cp, r, c))
     assert t2d.stencil_spmv_padded.launches == 4
+
+
+def _b1_cases(dtype, device):
+    """Layouts and terms that B1's geometry must take, each as
+    (name, x_pad, args of const_stencil_spmv_padded after x_pad)."""
+    rng = np.random.default_rng(3)
+    cases = []
+    # a block that is not a power of two: 3163 columns, stride 3200, block
+    # 102400 = 100 * 1024
+    d = tprob.grid_laplacian(6, 3163).to_dia(max_diags=16)
+    op = tst.ConstStencilOperator.from_dia(d, dtype=dtype, device=device)
+    assert op.block & (op.block - 1)
+    x = op.pad_vec(rng.standard_normal(op.n))
+    cases.append(("block not a power of two", x, (
+        op.gapmask, op.strided_terms, op.np_true, op.block, op.sub, 0)))
+    # a shard's base: the tail np_true - base falls inside the vector, and
+    # a base past np_true leaves all of it zero
+    d = tprob.grid_laplacian(17, 30).to_dia(max_diags=16)
+    op = tst.ConstStencilOperator.from_dia(d, dtype=dtype, device=device)
+    x = torch.from_numpy(rng.standard_normal(op.npad + 2 * op.block)).to(
+        dtype).to(device)
+    for base in (1000, 3000, op.np_true + 5):
+        cases.append((f"base {base}", x, (
+            op.gapmask, op.strided_terms, op.np_true, op.block, op.sub,
+            base)))
+    # mono's 37 wide terms on the mat10000 grid
+    a, op, _ = _setup(100, 100, 4, dtype, device)
+    mono = NeumannILUPreconditioner.from_csr(a, terms=4, pad_like=op,
+                                             prefer_mono=True,
+                                             milu_omega=0.96)
+    assert mono.fused == "mono" and len(mono.nl.strided_terms) == 37
+    x = op.pad_vec(rng.standard_normal(a.n))
+    cases.append(("mono", x, (op.gapmask, mono.nl.strided_terms, op.np_true,
+                              op.block, op.sub, 0)))
+    # the fuse_blas1 layout of a 100-column grid
+    a = tprob.grid_laplacian(300, 100)
+    d = a.to_dia(max_diags=16)
+    op0 = tst.ConstStencilOperator.from_dia(d, dtype=dtype, device="cpu")
+    plan = tst.plan_const_neumann_layout(op0.terms, 4, op0.c_grid,
+                                         op0.stride, fuse_blas1=True)
+    op = tst.ConstStencilOperator.from_dia(d, dtype=dtype, device=device,
+                                           min_sub=plan[0],
+                                           block_target=plan[1])
+    x = op.pad_vec(rng.standard_normal(a.n))
+    cases.append(("fuse_blas1 layout", x, (
+        op.gapmask, op.strided_terms, op.np_true, op.block, op.sub, 0)))
+    # terms four grid rows away on a 3163-column grid, past what the
+    # ring holds in shared memory: those read device memory
+    sub = 16384
+    stride, sub, block, np_true, npad, _ = tst.stencil_layout(
+        3163, 8 * 3163, ((0, 0, 1.0),), min_sub=sub)
+    terms = ((-4 * stride, 0.5), (-1, -1.0), (0, 4.0), (1, -1.0),
+             (4 * stride, 0.25))
+    plan = _kernels.spmv_plan(npad, block, 4 * stride, 8, 132)
+    assert plan.halo * plan.tile < 4 * stride
+    gap = torch.zeros(block, dtype=dtype)
+    gap.view(-1, stride)[:, :3163] = 1.0
+    x = torch.from_numpy(rng.standard_normal(npad + 2 * block)).to(dtype)
+    cases.append(("terms past the ring", x.to(device), (
+        gap.to(device), terms, np_true, block, sub, 0)))
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmv_kernel_layouts_on_card(dtype):
+    """B1 bitwise equal to its twin, with its output poisoned first and
+    the same bits over two launches, at each layout and term set of
+    _b1_cases; the pad blocks zero."""
+    tst.reset_launch_counts()
+    cases = _b1_cases(dtype, "cuda")
+    for name, x, args in cases:
+        torch.full_like(x, float("nan"))
+        y = tst.const_stencil_spmv_padded(x, *args)
+        torch.full_like(x, float("nan"))
+        y2 = tst.const_stencil_spmv_padded(x, *args)
+        yp = tst.const_stencil_spmv_padded_plain(x, *args)
+        torch.cuda.synchronize()
+        block = args[3]
+        assert torch.equal(y, yp), name
+        assert torch.equal(y, y2), name
+        assert torch.count_nonzero(y[:block]) == 0, name
+        assert torch.count_nonzero(y[y.shape[0] - block:]) == 0, name
+    assert tst.const_stencil_spmv_padded.launches == 2 * len(cases)
+
+
+def _b7_cases(dtype, device):
+    """(name, coeffs, x_pad, offsets, tr, tc, rp, cp, r, c) for B7."""
+    rng = np.random.default_rng(4)
+
+    def case(name, r, c, tr, tc, offsets, n_var):
+        rp, cp = -(-r // tr) * tr, -(-c // tc) * tc
+        grids = torch.from_numpy(rng.standard_normal((n_var, rp, cp)))
+        x = torch.from_numpy(rng.standard_normal((rp + 2 * tr)
+                                                 * (cp + 2 * tc)))
+        return (name, grids.to(dtype).to(device), x.to(dtype).to(device),
+                offsets, tr, tc, rp, cp, r, c)
+
+    reach = ((-4, 0, 0.5), (0, -8, -1.0), (0, 0, 4.0), (0, 8, -1.0),
+             (4, 0, 0.25), (-4, -8, None), (4, 8, None))
+    mixed = tuple((dr, dc, None if (dr + dc) % 2 == 0
+                   else float(rng.uniform(-2, 2)))
+                  for dr in (-1, 0, 1) for dc in (-1, 0, 1))
+    far = ((-200, 0, 1.5), (0, -1, -1.0), (0, 0, 4.0), (0, 3, -1.0),
+           (200, 0, 0.5))
+    return [
+        case("|dr| = tr and |dc| = tc", 13, 21, 4, 8, reach, 2),
+        case("variable coefficients with the mask", 30, 45, 16, 16, mixed,
+             5),
+        case("variable only, no mask", 20, 50, 8, 32,
+             tuple((dr, dc, None) for dr, dc, _ in mixed), 9),
+        case("columns not whole 16-byte words (tc 3)", 10, 10, 4, 3,
+             ((-1, 0, -1.0), (0, -1, -1.0), (0, 0, 4.0), (0, 1, -1.0),
+              (1, 0, -1.0)), 0),
+        case("rows past the ring (dr 200)", 300, 600, 256, 512, far, 0),
+        case("tc 512, the bench's tiles", 300, 700, 256, 512, mixed, 5),
+        case("runs of rows longer than a step, with a partial last step",
+             5000, 40, 8, 32, mixed, 5),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil2d_kernel_layouts_on_card(dtype):
+    """B7 bitwise equal to its twin, output poisoned first, the same bits
+    over two launches, at each case of _b7_cases."""
+    t2d.reset_launch_counts()
+    cases = _b7_cases(dtype, "cuda")
+    for name, coeffs, x, offsets, tr, tc, rp, cp, r, c in cases:
+        args = (coeffs, x, offsets, tr, tc, rp, cp, r, c)
+        torch.full_like(x, float("nan"))
+        y = t2d.stencil_spmv_padded(*args)
+        torch.full_like(x, float("nan"))
+        y2 = t2d.stencil_spmv_padded(*args)
+        yp = t2d.stencil_spmv_padded_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(y, yp), name
+        assert torch.equal(y, y2), name
+    assert t2d.stencil_spmv_padded.launches == 2 * len(cases)
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B7"])
+def test_stencil_cases_run_the_twins_on_cpu(kernel):
+    """The card cases above on CPU tensors: the front ends take them (the
+    layouts and terms pass their checks) and run the twins, counting no
+    launch."""
+    if kernel == "B1":
+        tst.reset_launch_counts()
+        for name, x, args in _b1_cases(torch.float64, "cpu"):
+            assert torch.equal(tst.const_stencil_spmv_padded(x, *args),
+                               tst.const_stencil_spmv_padded_plain(x, *args))
+        assert tst.const_stencil_spmv_padded.launches == 0
+    else:
+        t2d.reset_launch_counts()
+        for name, *args in _b7_cases(torch.float64, "cpu"):
+            assert torch.equal(t2d.stencil_spmv_padded(*args),
+                               t2d.stencil_spmv_padded_plain(*args))
+        assert t2d.stencil_spmv_padded.launches == 0
+
+
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when a header its source includes changes, and
+    reused while neither changes (a copying "compiler" stands in for
+    nvcc)."""
+    import sys
+
+    from cuda_mat_tpu_torch.utils import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
+    src.write_text("source")
+    hdr.write_text("header 1")
+    cc = [sys.executable, "-c",
+          "import shutil, sys; shutil.copy(sys.argv[-1], sys.argv[-2])"]
+    p1, s1 = build.build_library(cc, str(src), "libk", [str(hdr)])
+    p2, s2 = build.build_library(cc, str(src), "libk", [str(hdr)])
+    assert p1 == p2 and s2 == 0.0
+    hdr.write_text("header 2")
+    p3, s3 = build.build_library(cc, str(src), "libk", [str(hdr)])
+    assert p3 != p1 and s3 > 0.0

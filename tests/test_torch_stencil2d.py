@@ -23,6 +23,7 @@ from cuda_mat_tpu.ops import pallas_stencil as jst
 import cuda_mat_tpu_torch as ct
 import cuda_mat_tpu_torch.models.problems as tprob
 from cuda_mat_tpu_torch.convert import stencil2d_operator_from_numpy
+from cuda_mat_tpu_torch.ops import _kernels as tk
 from cuda_mat_tpu_torch.ops import stencil2d as t2d
 from cuda_mat_tpu_torch.precond.preconditioners import IdentityPreconditioner
 
@@ -157,3 +158,92 @@ def test_carried_operator_matches(constant):
     x = np.random.default_rng(4).standard_normal(op_t.n)
     assert np.array_equal(op_t.matvec(op_t.pad_vec(x)).numpy(),
                           np.asarray(op_j.matvec(op_j.pad_vec(x))))
+
+
+# ---------------------------------------------------------------------------
+# Kernel B7's launch geometry (ops/_kernels.stencil2d_plan) and its 32-bit
+# guard
+# ---------------------------------------------------------------------------
+
+def _plan_cases():
+    """(name, offsets, rp, cp, tr, tc, r, c) of B7 on the paths and in the
+    card tests: the bench's 3163² grid in both modes, the mat10000 grid, the
+    test layouts (tc 16, 32, 512), tc 3 and rows 200 away."""
+    out = []
+    for (r, c, tr, tc) in [(3163, 3163, 256, 512), (100, 100, 256, 512),
+                           (30, 30, 16, 16), (20, 50, 8, 32),
+                           (300, 700, 256, 512), (10, 10, 4, 3)]:
+        for constant in (True, False):
+            op = t2d.StencilOperator2D.laplacian(r, c, torch.float32, tr=tr,
+                                                 tc=tc, constant=constant,
+                                                 device="cpu")
+            out.append((f"{r}x{c} tiles {tr}x{tc} constant={constant}",
+                        op.offsets, op.rp, op.cp, tr, tc, r, c))
+    far = ((-200, 0, 1.5), (0, -1, -1.0), (0, 0, 4.0), (0, 3, -1.0),
+           (200, 0, 0.5))
+    out.append(("rows 200 away", far, 512, 1024, 256, 512, 300, 600))
+    return out
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("case", _plan_cases(), ids=lambda c: c[0])
+def test_stencil2d_plan(case, itemsize):
+    """Strips of whole 16-byte words (where rows and tile columns are) that
+    cover the computed columns, a step of 8 cells a thread or one row (one
+    with variable coefficients),
+    a ring that holds a step's rows and the terms' halo (all of it at
+    these layouts but rows 200 away), a coefficient ring without that halo,
+    shared memory within a block's limit,
+    and a block for every strip and run of rows."""
+    name, offsets, rp, cp, tr, tc, r, c = case
+    mask = t2d._needs_mask(offsets, rp, cp, r, c)
+    g = tk.stencil2d_plan(rp, cp, tr, tc, r, c, mask, offsets, itemsize,
+                          132)
+    v16 = 16 // itemsize
+    assert g.vec == (v16 if tc % v16 == 0 and cp % v16 == 0 else 1)
+    assert (g.r_eff, g.c_eff) == ((r, c) if mask else (rp, cp))
+    assert g.c_eff <= g.cw <= cp and g.cw % g.vec == 0
+    assert g.width % g.vec == 0 and g.width <= 4 * tk.STREAM_THREADS
+    assert (g.strips - 1) * g.width < g.cw <= g.strips * g.width
+    per = min(4, -(-g.width // tk.STREAM_THREADS))
+    per = 4 if per > 2 else per
+    assert g.step_rows in (1, 8 // per)
+    hr = max(abs(o[0]) for o in offsets)
+    hc = max(abs(o[1]) for o in offsets)
+    if hr <= 4:
+        assert g.hr == hr and hc <= g.hc <= tc and g.hc % g.vec == 0
+    else:
+        assert g.hr < hr
+    n_var = sum(o[2] is None for o in offsets)
+    assert g.step_rows == 1 or n_var == 0
+    assert g.slot == g.width + 2 * g.hc
+    assert g.stages >= 2 * g.hr + 2 * g.step_rows
+    assert g.smem == ((g.stages * g.slot
+                       + (g.stages - 2 * g.hr) * n_var * g.width
+                       + 2 * g.step_rows * g.width
+                       + per * tk.STREAM_THREADS) * itemsize
+                      + 8 * g.stages)
+    assert g.smem <= tk.SMEM_LIMIT - tk.STATIC_SMEM
+    assert g.ctas == g.strips * -(-g.r_eff // g.rows)
+    if name.startswith("3163x3163") and "True" in name and itemsize == 4:
+        assert (g.width, g.strips, g.step_rows, g.hr, g.hc) == (
+            792, 4, 2, 1, 4)
+    if name.startswith("3163x3163") and "False" in name and itemsize == 8:
+        # path 4b's variable case: one row a step, three blocks an SM
+        assert (g.width, g.step_rows, g.stages) == (512, 1, 4)
+        assert tk._blocks_per_sm(g.smem) == 3
+
+
+def test_stencil2d_front_end_refuses_64_bit_grids():
+    """A padded grid of 2^31 cells or more needs 64-bit indices: the front
+    end raises before building or launching anything (meta tensors stand
+    in for CUDA ones)."""
+    tr, tc, rp, cp = 8, 32, 65536, 32768
+    x = torch.empty((rp + 2 * tr) * (cp + 2 * tc), dtype=torch.float32,
+                    device="meta")
+    coeffs = torch.empty((0, rp, cp), dtype=torch.float32, device="meta")
+    t2d.reset_launch_counts()
+    with pytest.raises(ValueError, match="32-bit"):
+        t2d.stencil_spmv_padded(coeffs, x, ((0, 0, 1.0),), tr, tc, rp, cp,
+                                rp, cp)
+    assert t2d.stencil_spmv_padded.launches == 0
