@@ -13,7 +13,8 @@ script exits non-zero:
    native parser/factorizer (g++), all at once, from this checkout;
 3. stencil kernel parity: B1 and B2 against their plain PyTorch twins on the
    card, in f32 and f64, at the mat10000-sized layout and at the flagship
-   layout, bitwise; times of kernel, twin and the library call and each
+   layout, bitwise, and the same over two launches; times of kernel, twin
+   and the library call and each
    kernel's bound (see "Times" below); a small f64 solve on the card
    against the same solve on the CPU (plain twins);
 4. main path 1, the flagship: grid_laplacian(100000, 100) (10M rows),
@@ -50,16 +51,18 @@ script exits non-zero:
 9. fusion kernel parity: B5 (the BLAS1-prologue msolve, three and two
    input streams, three scalar pairs) and B6 (B1 with dots in its epilogue,
    with and without <y, y>) against their twins, bitwise, pad blocks zero,
-   in f32 and f64, at the mat10000 layout and at the flagship's fuse_blas1
-   layout; B6 also equal to B1 and the same over two launches; times and
-   bounds; B1 on the mono preconditioner's 37 terms against its twin;
+   the same over two launches, in f32 and f64, at the mat10000 layout and
+   at the flagship's fuse_blas1 layout; B6 also equal to B1; times and
+   bounds, and B2's and B5's f64 device times (reported, not gated); B1 on
+   the mono preconditioner's 37 terms against its twin;
 10. main path 4a, the flagship with the loop's opt-in fusions: a
    fuse_blas1 solver's solves (i) fuse_blas1 and (ii) fuse_blas1 +
    fused_dots + check_halves=False, and on path 1's solver (iii) fused_dots
    and (iv) check_halves=False; the launches show B5 and B6 carrying every
    msolve and matvec of their loops; (ii) refined to <= 1e-6; then a
    prefer_mono solve of the mat10000 grid, card against CPU, in f64 (its
-   37-term B1 stencil is checked against B1's twin in phase 9);
+   37-term B1 stencil is checked against B1's twin in phase 9); after the
+   path's launch counts are read, a profile of 30 iterations of (i) as in 4;
 11. 2-D stencil parity: B7 (StencilOperator2D) against its twin, bitwise,
    ring zero, the same over two launches, in f32 and f64, constant and
    variable coefficients, at the 3163 x 3163 grid, and its A x equal to
@@ -292,12 +295,17 @@ def kernel_parity(ps, dtype, tag, stats, timed):
     for name, (kern, plain) in cases.items():
         poison_allocator(x)
         yk = kern()
+        poison_allocator(x)
+        yk2 = kern()
         yp = plain()
         torch.cuda.synchronize()
         if not torch.isfinite(yk).all():
             raise RuntimeError(f"{tag} {name}: non-finite kernel output")
+        if not torch.equal(yk, yk2):
+            raise RuntimeError(f"{tag} {name}: two launches differ")
         err = float((yk - yp).abs().max())
-        line = f"{tag} {str(dtype)[6:]} {name}: max|kernel - twin| = {err!r}"
+        line = (f"{tag} {str(dtype)[6:]} {name}: max|kernel - twin| ="
+                f" {err!r}, two launches equal")
         if timed:
             t, pms = kernel_times(kern), cuda_ms(plain)
             stats[name].update(**t, plain_ms=pms)
@@ -946,12 +954,17 @@ def fusion_parity(ps, dtype, tag, stats, timed):
             poison_allocator(av)
             poison_allocator(av)
             pk, yk = st.const_series_msolve_fma_padded(*args)
+            poison_allocator(av)
+            poison_allocator(av)
+            pk2, yk2 = st.const_series_msolve_fma_padded(*args)
             pp, yp = st.const_series_msolve_fma_padded_plain(*args)
             torch.cuda.synchronize()
             what = f"{tag} {str(dtype)[6:]} {name} ({3 if three else 2}" \
                    f" streams, c1 {c1}, c2 {c2 if three else None})"
             if not (torch.isfinite(pk).all() and torch.isfinite(yk).all()):
                 raise RuntimeError(f"{what}: non-finite kernel output")
+            if not (torch.equal(pk, pk2) and torch.equal(yk, yk2)):
+                raise RuntimeError(f"{what}: two launches differ")
             if not (pads_zero(pk, op.block, op.npad)
                     and pads_zero(yk, op.block, op.npad)):
                 raise RuntimeError(f"{what}: pad blocks not zero")
@@ -962,7 +975,8 @@ def fusion_parity(ps, dtype, tag, stats, timed):
                 raise RuntimeError(f"{what}: kernel differs from its twin"
                                    f" (max abs {err!r}; bitwise required)")
     print(f"{tag} {str(dtype)[6:]} {name}: bitwise equal to its twin (p and"
-          f" y) in {2 * len(FMA_PAIRS)} cases", flush=True)
+          f" y) and the same over two launches in {2 * len(FMA_PAIRS)}"
+          " cases", flush=True)
     name = "const_stencil_spmv_dots"
     for with_self in (True, False):
         poison_allocator(av)
@@ -1014,6 +1028,7 @@ def fusion_parity(ps, dtype, tag, stats, timed):
         stats["const_series_msolve_fma"].update(
             **t[True][0], plain_ms=t[True][1], **t[True][2],
             ms_two_streams=t[False][0]["ms"],
+            device_ms_two_streams=t[False][0]["device_ms"],
             bound_ms_two_streams=t[False][2]["bound_ms"], library_ms=None,
             library="none: no one PyTorch call computes the combination"
             " and the polynomial msolve")
@@ -1035,6 +1050,48 @@ def fusion_parity(ps, dtype, tag, stats, timed):
               f" {t6['device_ms']:.4f}), twin {pms:.4f} ms, bound"
               f" {b6['bound_ms']:.4f} ms"
               f" ({b6['bound_by']})", flush=True)
+
+
+def msolve_f64_times(ps, ps_f, stats):
+    """B2's and B5's (both forms) device times in f64 at the layouts where
+    their f32 times are taken (path 1's and the fuse_blas1 solver's), with
+    their f64 bounds: reported, not gated."""
+    rng = np.random.default_rng(3)
+    dt = torch.float64
+    out = {}
+    for solver, key in ((ps, "b2"), (ps_f, "b5")):
+        op, pre = solver.op, solver.pre
+        av, bv, cv = (op.pad_vec(rng.standard_normal(op.n)).to(dt)
+                      for _ in range(3))
+        layout = (pre.inv_d.to(dt), pre.gap_ext.to(dt), pre.nl.strided_terms,
+                  pre.nu.strided_terms, op.np_true, op.block, op.sub)
+        vec = av.numel() * av.element_size()
+        ge = layout[1].numel() * layout[1].element_size()
+        n2 = len(pre.nl.strided_terms) + len(pre.nu.strided_terms)
+        if key == "b2":
+            out["b2"] = (device_ms(lambda: st.const_series_msolve_padded(
+                av, *layout)), bound(3 * vec + ge, (2 * n2 + 2) * op.npad))
+            continue
+        s1 = torch.tensor(0.5, dtype=dt, device=DEVICE)
+        s2 = torch.tensor(-0.5, dtype=dt, device=DEVICE)
+        for three in (True, False):
+            args = (av, s1, bv, s2 if three else None, cv if three else None,
+                    *layout)
+            out[three] = (device_ms(
+                lambda: st.const_series_msolve_fma_padded(*args)),
+                bound((6 if three else 5) * vec + ge,
+                      ((4 if three else 2) + 2 * n2 + 2) * av.numel()))
+    stats["const_series_msolve"].update(
+        device_ms_f64=out["b2"][0], bound_ms_f64=out["b2"][1]["bound_ms"])
+    stats["const_series_msolve_fma"].update(
+        device_ms_f64=out[True][0], bound_ms_f64=out[True][1]["bound_ms"],
+        device_ms_f64_two_streams=out[False][0],
+        bound_ms_f64_two_streams=out[False][1]["bound_ms"])
+    print(f"f64 device times: B2 {out['b2'][0]:.4f} ms (bound"
+          f" {out['b2'][1]['bound_ms']:.4f}), B5 three streams"
+          f" {out[True][0]:.4f} ({out[True][1]['bound_ms']:.4f}), two"
+          f" streams {out[False][0]:.4f} ({out[False][1]['bound_ms']:.4f})",
+          flush=True)
 
 
 def loop_steps(r):
@@ -1430,6 +1487,7 @@ def main():
         for dt in (torch.float32, torch.float64):
             fusion_parity(ps_f, dt, "flagship fuse_blas1 layout", stats,
                           timed=dt == torch.float32)
+        msolve_f64_times(ps, ps_f, stats)
         mono_parity(dev)
 
     # ---- main path 4a: the flagship with the loop's opt-in fusions
@@ -1475,7 +1533,12 @@ def main():
     check_counted("main path 4a (flagship with fusions)", path4a,
                   ("const_stencil_spmv", "const_series_msolve",
                    "const_series_msolve_fma", "const_stencil_spmv_dots"))
-    del ps, ps_f, cases, a
+    with phase(timer, "flagship fuse_blas1 profile"):
+        cut = bs.PreparedSolver(a, ps_f.op, ps_f.pre,
+                                cfg_f.replace(maxit=PROFILE_ITERS),
+                                ps_f.dt_setup)
+        loop_split("flagship (i) fuse_blas1", lambda: cut.solve(b))
+    del ps, ps_f, cases, a, cut
 
     cfg_ilu = ct.SolverConfig(maxit=2000, tol=1e-6, dtype="float64",
                               precond="ilu0", trisolve_block=128)

@@ -20,6 +20,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "tma_ring.cuh"
@@ -29,6 +30,7 @@ namespace {
 constexpr int kMaxTerms = 64;
 constexpr int kBadArgs = -1;
 constexpr int kThreads = 256;
+constexpr size_t kSmemLimit = 232448;   // dynamic shared memory of a block
 
 // Stencil terms go to the kernel by value, in its parameter space;
 // __grid_constant__ lets the kernels index them there without a copy to
@@ -233,53 +235,461 @@ const_stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ gap,
   }
 }
 
-// B2. Replaces const_series_msolve_padded / _const_msolve_kernel +
-// _msolve_series_interior (pallas_stencil.py:624, :524, :474): the fused
-// Neumann-series M-solve
-//   u = (P_l x) * gap * inv_d,  zeroed outside global rows [0, np_true)
-//   y = (P_u u) * gap,          zeroed in the pads and the tail.
-// Bound by device memory: it reads x and inv_d and writes y (about 12 bytes
-// per element in f32).  The intermediate u never goes to device memory: each
-// thread block owns an output tile of `tile` rows and builds u over
-// [tile0 - halo, tile0 + tile + halo) in shared memory, halo = max|off_u|.
-// Blocks run in any order, so each one recomputes its own halo of u (2*halo
-// extra P_l rows per tile) instead of carrying state between grid steps as
-// the TPU's sequential grid did.
+// B2 and B5, one kernel.  B2 replaces const_series_msolve_padded /
+// _const_msolve_kernel + _msolve_series_interior (pallas_stencil.py:624,
+// :524, :474), the fused Neumann-series M-solve
+//   u = (P_l x) * gap * inv_d,  0 in the pad blocks and for rows q >= lim,
+//   y = (P_u u) * gap,          0 in the pad blocks and for rows q >= lim
+// (lim = np_true - base, the shard's tail, clipped to [0, npad]).  B5
+// replaces const_series_msolve_fma_padded / _const_msolve_fma_kernel (:681,
+// :554): the same series on p, with the solver's BLAS1 update folded in
+// ahead of it,
+//   p = a + c1 * (b + c2 * c)   (c given)   or   p = a + c1 * b,
+// and p returned too; c1 and c2 are read from device memory (0-d tensors of
+// the loop), so the host never waits for them.  B2 is the case p = x.
+// Bound by device memory: each input stream (x, or a, b and c) and inv_d
+// read once, y (and p) written once: 12 bytes a row in f32 for B2, 20 and 24
+// for B5's two and three streams.  u and p never go to device memory.  A
+// design with one thread block per tile (~6,300 at the flagship) had to
+// recompute u over the tile and its halo (1.375x the rows; B5 also p over
+// 1.75x), and with 64-bit indices, a 64-bit modulo a row, double
+// coefficients and 4-byte stores it reached 24% (B2) and 17% (B5) of the
+// bound on an H100.  What this design does:
+//   * Persistent thread blocks, each owning one run of tiles (`tile` rows, a
+//     power of two dividing block).  Even blocks walk their run forward and
+//     odd ones backward, so the tiles two neighbours both read come from L2.
+//   * The input streams and inv_d come through a ring of `stages` stages in
+//     shared memory, one TMA bulk copy per tile and stream, all of a stage
+//     completing on the stage's mbarrier.  A step consumes one stage: it
+//     forms the stage's p tile (B2: copies x) into the p ring, which keeps
+//     the tiles P_l reads (`xlo` behind the u tile, `xhi` ahead) and the one
+//     being formed, and it takes the inv_d tile of the u tile it computes.
+//     A term of P_l that reaches past the p ring's halo (only where the ring
+//     would not fit shared memory) reads device memory (B5 forms p there).
+//   * u is computed once per run: each u tile once, ahead of the first y
+//     tile that reads it, into a ring that keeps P_u's reach (`ulo` tiles
+//     behind the y tile, `uhi` ahead).  A run adds ulo + uhi u tiles.
+//   * Reads without a wrap: each ring also holds a copy of its first rows
+//     after its end and of its last rows before its start (gp_*, gu_*: as
+//     far as the terms reach), so a term's reads are one address plus a
+//     constant.  Where those copies do not fit shared memory, the u ring
+//     wraps each read instead (`wrap`).
+//   * Thread t computes rows t + 256u (u < P) of a tile: conflict-free
+//     shared-memory reads.  y goes out through a staging tile as 16-byte
+//     words, p from the p ring; the pad blocks are written as zero words.
+//   * 32-bit indices (the wrapper refuses npad + 2 block >= 2^31) and no
+//     division in the loop: the ring and gap-mask positions move by one
+//     tile a step (a tile never straddles a layout block).  Terms as 32-bit
+//     offsets with coefficients already in T (rounded on the host, as the
+//     twins round them), one shared-memory read a term, a term ahead.
+//   * Lean mode (stages == 0), for layouts whose u ring leaves no room for
+//     the rest: the inputs, inv_d and p come from device memory and y is
+//     stored from registers; only u stays in shared memory.
+// On an H100 a step is bound by its own instructions and shared-memory
+// reads (20 term reads a row at the flagship), not by its loads: one or two
+// stages time alike, and larger tiles run faster (tools/msolve_sweep.py).
+// Every product and sum is rounded on its own, in the twins' order, so p
+// and y equal the plain twins (ops/stencil.py) bit for bit.
 template <typename T>
-__global__ void const_series_msolve_kernel(
-    const T* __restrict__ x, const T* __restrict__ inv_d,
-    const T* __restrict__ gap_ext, T* __restrict__ y,
-    const __grid_constant__ Terms tl, const __grid_constant__ Terms tu,
-    long long npad, long long block, long long np_true, long long base,
-    int hpad_ext, int halo, int tile) {
-  extern __shared__ unsigned char smem_raw[];
-  T* u = reinterpret_cast<T*>(smem_raw);
-  const T* gap = gap_ext + hpad_ext;  // gap[m], m in [0, block)
-  const long long tile0 = static_cast<long long>(blockIdx.x) * tile;
-  // tile divides block, so a tile lies wholly in a pad or wholly inside
-  if (tile0 < block || tile0 >= block + npad) {
-    for (int m = threadIdx.x; m < tile; m += blockDim.x) y[tile0 + m] = T(0);
-    return;
+struct MsolveArgs {
+  const T* a;        // x (B2) or a (B5)
+  const T* b;        // B5 only
+  const T* c;        // B5's third stream, or null
+  const T* c1p;      // B5's scalars, on the device
+  const T* c2p;
+  const T* inv_d;
+  const T* gap;      // gap[m], m in [0, block)
+  T* p;              // B5's p, null for B2
+  T* y;
+  int npad, block, lim;
+  int nin;           // streams combined into p: 1 (B2's x), 2 or 3
+  int stages;        // input ring stages; 0: lean mode
+  int xlo, xhi;      // tiles of P_l's reach that the p ring holds
+  int gp_lo, gp_hi;  // rows of P_l's reach read from the p ring
+  int ulo, uhi;      // tiles of P_u's reach
+  int ru;            // rows of the u ring
+  int gu_lo, gu_hi;  // rows copied before and after the u ring
+  int wrap;          // the u ring wraps each read (no copies)
+  TermsT<T> tl, tu;
+};
+
+// A term in shared memory: one 8-byte (f32) or 16-byte (f64) read.
+template <typename T>
+struct alignas(2 * sizeof(T) > 8 ? 16 : 8) TermS {
+  int off;
+  T c;
+};
+
+// acc[u] = sum_j c_j v_j[u] in term order, v_j from read(off_j, v_j): the
+// first product, then + each product, every one rounded on its own.  The
+// terms are read a term ahead of their use (t[n] exists).
+template <typename T, int P, class Read>
+__device__ __forceinline__ void series(const TermS<T>* t, int n, Read read,
+                                       T (&acc)[P]) {
+  T v[P];
+  TermS<T> cur = t[0];
+  read(cur.off, v);
+#pragma unroll
+  for (int u = 0; u < P; ++u) acc[u] = mul_rn(cur.c, v[u]);
+  TermS<T> next = t[1];
+  for (int j = 1; j < n; ++j) {
+    cur = next;
+    next = t[j + 1];
+    read(cur.off, v);
+#pragma unroll
+    for (int u = 0; u < P; ++u) acc[u] = add_rn(acc[u], mul_rn(cur.c, v[u]));
   }
-  const int ext = tile + 2 * halo;
-  for (int e = threadIdx.x; e < ext; e += blockDim.x) {
-    const long long p = tile0 - halo + e;  // padded position of u[e]
-    const long long q = p - block;         // strided row, >= -halo
-    T v = T(0);
-    if (base + q >= 0 && base + q < np_true)
-      v = mul_rn(mul_rn(stencil_sum(tl, x, p), gap[(q + block) % block]),
-                 inv_d[p]);
-    u[e] = v;
+}
+
+// a mod m in [0, m), for m > 0 and any a
+__device__ __forceinline__ int posmod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// a + d wrapped into [0, m), for a in [0, m) and |d| <= m
+__device__ __forceinline__ int wrap_add(int a, int d, int m) {
+  a += d;
+  return a < 0 ? a + m : a >= m ? a - m : a;
+}
+
+// P = tile / kStreamThreads rows a thread, a compile-time constant.
+template <typename T, int P>
+__global__ void __launch_bounds__(kStreamThreads, P >= 8 ? 2 : 4)
+const_series_msolve_kernel(const __grid_constant__ MsolveArgs<T> k) {
+  using V = typename cmt::Vec16<T>::type;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kTile = P * kStreamThreads;
+  constexpr int kWords = kTile / kVec;   // 16-byte words of a tile
+  constexpr int kPer = (kWords + kStreamThreads - 1) / kStreamThreads;
+  constexpr unsigned kBytes = kTile * sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // P_l's and P_u's terms, one past the last (read ahead of its use)
+  __shared__ TermS<T> s_terms[2][kMaxTerms + 1];
+  const int tid = threadIdx.x;
+  // the arguments in registers, read once from parameter space
+  const T* __restrict__ xa = k.a;
+  const T* __restrict__ xb = k.b;
+  const T* __restrict__ xc = k.c;
+  const T* __restrict__ inv_d = k.inv_d;
+  const T* __restrict__ gap = k.gap;
+  T* __restrict__ p_out = k.p;
+  const int npad = k.npad, block = k.block, lim = k.lim, nin = k.nin;
+  const int stages = k.stages, xlo = k.xlo, xhi = k.xhi;
+  const int gp_lo = k.gp_lo, gp_hi = k.gp_hi, ru = k.ru;
+  const int gu_lo = k.gu_lo, gu_hi = k.gu_hi;
+  const bool wrap = k.wrap != 0;
+  const bool lean = stages == 0;
+  const int ntl = k.tl.n, ntu = k.tu.n;
+  bool near = true;   // this thread's P_l term reads the p ring
+  if (tid <= kMaxTerms) {
+    const int ol = tid < ntl ? k.tl.off[tid] : 0;
+    s_terms[0][tid] = {ol, tid < ntl ? k.tl.c[tid] : T(0)};
+    s_terms[1][tid] = {tid < ntu ? k.tu.off[tid] : 0,
+                       tid < ntu ? k.tu.c[tid] : T(0)};
+    near = !lean && ol >= -gp_lo && ol <= gp_hi;
   }
-  __syncthreads();
-  for (int m = threadIdx.x; m < tile; m += blockDim.x) {
-    const long long q = tile0 + m - block;
-    T out = T(0);
-    if (base + q < np_true)
-      out = mul_rn(stencil_sum(tu, static_cast<const T*>(u),
-                               static_cast<long long>(halo + m)),
-                   gap[q % block]);
-    y[tile0 + m] = out;
+  const int nst = nin + 1;   // tiles of a stage: the streams, then inv_d
+  const int rp = lean ? 0 : (xlo + xhi + 2) * kTile;   // p ring rows
+  T* in = reinterpret_cast<T*>(smem_raw);
+  T* pr = in + stages * nst * kTile + gp_lo;   // row 0 of the p ring
+  T* ur = pr + rp + gp_hi + gu_lo;             // row 0 of the u ring
+  T* staged = ur + ru + gu_hi;                 // a tile of y
+  std::uint64_t* bars =
+      reinterpret_cast<std::uint64_t*>(staged + (lean ? 0 : kTile));
+
+  // This block's run: tiles [t0, t1) of the ntiles inner tiles.  In walk
+  // order, y tile Y_w (w < t1 - t0) is tile first + dir w; u tile U_j is
+  // first + dir (j - bu) and p tile X_m is first + dir (m - bu - bx), so Y_w
+  // reads U_w .. U_{w+bu+au} and U_j reads X_j .. X_{j+E-1}.  Tile T holds
+  // padded rows [T tile, (T + 1) tile).
+  const int ntiles = npad / kTile;
+  const int t0 = static_cast<int>(static_cast<long long>(blockIdx.x) *
+                                  ntiles / gridDim.x);
+  const int t1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) *
+                                  ntiles / gridDim.x);
+  const int dir = blockIdx.x & 1 ? -1 : 1;
+  const int inner0 = block / kTile;   // the first inner tile
+  const int inner1 = inner0 + ntiles;
+  const int first = inner0 + (dir > 0 ? t0 : t1 - 1);
+  const int bu = dir > 0 ? k.ulo : k.uhi;
+  const int au = dir > 0 ? k.uhi : k.ulo;
+  const int bx = dir > 0 ? xlo : xhi;
+  const int E = xlo + xhi + 1;
+  const int nu = t1 - t0 + bu + au;   // u tiles of the run
+  const int nx = nu + E - 1;          // p tiles of the run
+  // load m brings X_m's streams (m < nx) and U_{m-E}'s inv_d (m >= E);
+  // step i consumes load i + E: it forms X_{i+E} and computes U_i
+  const int nloads = nu + E;
+
+  const T c1 = nin > 1 ? *k.c1p : T(0);
+  const T c2 = nin > 2 ? *k.c2p : T(0);
+  // p from the streams' values, in fma_combine's order (B2: x itself)
+  auto combine = [&](T a, T b, T c) -> T {
+    if (nin == 1) return a;
+    if (nin == 2) return add_rn(a, mul_rn(c1, b));
+    return add_rn(a, mul_rn(c1, add_rn(b, mul_rn(c2, c))));
+  };
+  auto p_at = [&](int r) -> T {   // p at padded row r, from device memory
+    if (nin == 1) return __ldg(xa + r);
+    return combine(__ldg(xa + r), __ldg(xb + r),
+                   nin > 2 ? __ldg(xc + r) : T(0));
+  };
+  auto issue = [&](int m) {
+    const int s = m % stages;
+    T* st = in + s * nst * kTile;
+    const int tx = first + dir * (m - bu - bx);
+    const int tu = first + dir * (m - E - bu);
+    const bool has_x = m < nx && tx >= 0 && tx < inner1 + inner0;
+    const bool has_d = m >= E && tu >= inner0 && tu < inner1;
+    cmt::mbar_expect(bars + s, (has_x ? nin * kBytes : 0u) +
+                                   (has_d ? kBytes : 0u));
+    if (has_x) {
+      cmt::bulk_copy(st, xa + tx * kTile, kBytes, bars + s);
+      if (nin > 1) cmt::bulk_copy(st + kTile, xb + tx * kTile, kBytes, bars + s);
+      if (nin > 2)
+        cmt::bulk_copy(st + 2 * kTile, xc + tx * kTile, kBytes, bars + s);
+    }
+    if (has_d)
+      cmt::bulk_copy(st + nin * kTile, inv_d + tu * kTile, kBytes, bars + s);
+  };
+  if (!lean && tid == 0) {
+    for (int s = 0; s < stages; ++s) cmt::mbar_init(bars + s);
+    cmt::mbar_fence_init();
+    for (int m = 0; m < min(stages, nloads); ++m) issue(m);
+  }
+
+  // the pad blocks of y (and p), while the first stages load: zero words
+  const int pv = block / kVec;
+  V* yv = reinterpret_cast<V*>(k.y);
+  V* pv_out = reinterpret_cast<V*>(p_out);
+  for (int v = blockIdx.x * kStreamThreads + tid; v < 2 * pv;
+       v += gridDim.x * kStreamThreads) {
+    const int at = v < pv ? v : v + npad / kVec;
+    yv[at] = cmt::zero16<T>();
+    if (pv_out != nullptr) pv_out[at] = cmt::zero16<T>();
+  }
+  // the barriers and the terms ready; every P_l term in the p ring?
+  near = __syncthreads_and(near);
+
+  // Per-step positions, moved by one tile a step (no division in the
+  // loop): the stage of the load consumed and its phase, the u tile's and
+  // the y tile's rows in the u ring and in the layout block (gap), the u
+  // tile's and the formed p tile's rows in the p ring.
+  const int i0 = lean ? 0 : -E;
+  const int step = dir * kTile;
+  int slot = 0, phase = 0;   // load i + E = i0 + E = 0 (normal mode)
+  int u_tile = first - dir * bu;   // U_0's, moved from step 0 on
+  int u_ring = posmod(u_tile * kTile, ru);
+  int u_gap = posmod(u_tile * kTile - block, block);
+  int u_p = lean ? 0 : posmod(u_tile * kTile, rp);
+  const int y0 = (first + dir * (i0 - bu - au)) * kTile;
+  int y_ring = posmod(y0, ru);
+  int y_gap = posmod(y0 - block, block);
+  int x_p = lean ? 0 : posmod((first + dir * (i0 + E - bu - bx)) * kTile, rp);
+  for (int i = i0; i < nu; ++i) {
+    const int m = i + E;   // the load this step consumes
+    const int w = i - bu - au;   // this step's y tile, Y_w (if w >= 0)
+    const int yrow0 = (first + dir * w) * kTile;
+    const int yq0 = yrow0 - block;
+    // the y tile's gap mask, loaded ahead of the u tile's work
+    T gy[P];
+    if (w >= 0 && yq0 < lim) {
+#pragma unroll
+      for (int u = 0; u < P; ++u)
+        gy[u] = __ldg(gap + y_gap + tid + u * kStreamThreads);
+    }
+    const T* st = in + slot * nst * kTile;
+    if (!lean) cmt::mbar_wait(bars + slot, phase);
+    if (i >= 0) {   // u tile U_i, from the p ring: its rows, then the copies
+      const int row0 = u_tile * kTile;
+      const int q0 = row0 - block;
+      T uv[P];
+      if (u_tile >= inner0 && u_tile < inner1 && q0 < lim) {
+        T g[P], d[P];
+#pragma unroll
+        for (int u = 0; u < P; ++u) {
+          const int e = tid + u * kStreamThreads;
+          g[u] = __ldg(gap + u_gap + e);
+          d[u] = lean ? __ldg(inv_d + row0 + e) : st[nin * kTile + e];
+        }
+        const T* pb = pr + u_p + tid;
+        T acc[P];
+        if (near) {
+          series<T, P>(
+              s_terms[0], ntl,
+              [&](int off, T(&v)[P]) {
+#pragma unroll
+                for (int u = 0; u < P; ++u)
+                  v[u] = pb[off + u * kStreamThreads];
+              },
+              acc);
+        } else {
+          series<T, P>(
+              s_terms[0], ntl,
+              [&](int off, T(&v)[P]) {
+                if (!lean && off >= -gp_lo && off <= gp_hi) {
+#pragma unroll
+                  for (int u = 0; u < P; ++u)
+                    v[u] = pb[off + u * kStreamThreads];
+                } else {
+#pragma unroll
+                  for (int u = 0; u < P; ++u)
+                    v[u] = p_at(row0 + tid + off + u * kStreamThreads);
+                }
+              },
+              acc);
+        }
+#pragma unroll
+        for (int u = 0; u < P; ++u)
+          uv[u] = q0 + tid + u * kStreamThreads < lim
+                      ? mul_rn(mul_rn(acc[u], g[u]), d[u])
+                      : T(0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < P; ++u) uv[u] = T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        int pos = u_ring + tid + u * kStreamThreads;
+        pos -= pos >= ru ? ru : 0;
+        ur[pos] = uv[u];
+        if (pos < gu_hi) ur[pos + ru] = uv[u];
+        if (pos >= ru - gu_lo) ur[pos - ru] = uv[u];
+      }
+    }
+    const int tx = first + dir * (m - bu - bx);   // X_m's tile
+    const bool formed = !lean && m < nx && tx >= 0 && tx < inner1 + inner0;
+    if (formed) {   // p tile X_m into the p ring and its copies
+      const V* sv = reinterpret_cast<const V*>(st);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int v = tid + j * kStreamThreads;
+        if (kWords % kStreamThreads != 0 && v >= kWords) break;
+        V pw = sv[v];
+        if (nin > 1) {
+          const V bw = sv[kWords + v];
+          const V cw = nin > 2 ? sv[2 * kWords + v] : bw;
+          T* pe = reinterpret_cast<T*>(&pw);
+          const T* be = reinterpret_cast<const T*>(&bw);
+          const T* ce = reinterpret_cast<const T*>(&cw);
+#pragma unroll
+          for (int q = 0; q < kVec; ++q) pe[q] = combine(pe[q], be[q], ce[q]);
+        }
+        const int pos = x_p + v * kVec;
+        *reinterpret_cast<V*>(pr + pos) = pw;
+        if (pos < gp_hi) *reinterpret_cast<V*>(pr + pos + rp) = pw;
+        if (pos >= rp - gp_lo) *reinterpret_cast<V*>(pr + pos - rp) = pw;
+      }
+    }
+    // U_i and X_m written, every read of load m's stage done: the stage
+    // takes load m + stages
+    __syncthreads();
+    if (!lean && tid == 0 && m + stages < nloads) issue(m + stages);
+    if (w >= 0) {   // y tile Y_w from the u ring
+      T out[P];
+      if (yq0 < lim) {
+        const int ub = y_ring + tid;
+        T acc[P];
+        if (wrap) {
+          series<T, P>(
+              s_terms[1], ntu,
+              [&](int off, T(&v)[P]) {
+                int r0 = ub + off;
+                r0 += r0 < 0 ? ru : 0;
+                r0 -= r0 >= ru ? ru : 0;
+#pragma unroll
+                for (int u = 0; u < P; ++u) {
+                  int r = r0 + u * kStreamThreads;
+                  r -= r >= ru ? ru : 0;
+                  v[u] = ur[r];
+                }
+              },
+              acc);
+        } else {
+          const T* yb = ur + ub;
+          series<T, P>(
+              s_terms[1], ntu,
+              [&](int off, T(&v)[P]) {
+#pragma unroll
+                for (int u = 0; u < P; ++u)
+                  v[u] = yb[off + u * kStreamThreads];
+              },
+              acc);
+        }
+#pragma unroll
+        for (int u = 0; u < P; ++u)
+          out[u] = yq0 + tid + u * kStreamThreads < lim
+                       ? mul_rn(acc[u], gy[u])
+                       : T(0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < P; ++u) out[u] = T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const int e = tid + u * kStreamThreads;
+        if (lean)
+          k.y[yrow0 + e] = out[u];
+        else
+          staged[e] = out[u];
+      }
+    }
+    if (pv_out != nullptr) {   // B5's p of the run's own tiles
+      const int wx = m - bu - bx;
+      if (formed && wx >= 0 && wx < t1 - t0) {   // X_m, just formed
+        const V* src = reinterpret_cast<const V*>(pr + x_p);
+        V* dst = pv_out + tx * kWords;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int v = tid + j * kStreamThreads;
+          if (kWords % kStreamThreads == 0 || v < kWords) dst[v] = src[v];
+        }
+      } else if (lean && w >= 0) {
+        const int ty = first + dir * w;
+        const V* av = reinterpret_cast<const V*>(xa) + ty * kWords;
+        const V* bv = reinterpret_cast<const V*>(xb) + ty * kWords;
+        const V* cv = nin > 2 ? reinterpret_cast<const V*>(xc) + ty * kWords
+                              : bv;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int v = tid + j * kStreamThreads;
+          if (kWords % kStreamThreads != 0 && v >= kWords) break;
+          V pw = __ldg(av + v);
+          const V bw = __ldg(bv + v);
+          const V cw = nin > 2 ? __ldg(cv + v) : bw;
+          T* pe = reinterpret_cast<T*>(&pw);
+          const T* be = reinterpret_cast<const T*>(&bw);
+          const T* ce = reinterpret_cast<const T*>(&cw);
+#pragma unroll
+          for (int q = 0; q < kVec; ++q) pe[q] = combine(pe[q], be[q], ce[q]);
+          pv_out[ty * kWords + v] = pw;
+        }
+      }
+    }
+    // the staged y tile complete, every read of U_{i-U} done
+    __syncthreads();
+    if (!lean && w >= 0) {
+      const V* sv = reinterpret_cast<const V*>(staged);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int v = tid + j * kStreamThreads;
+        if (kWords % kStreamThreads == 0 || v < kWords)
+          yv[yrow0 / kVec + v] = sv[v];
+      }
+    }
+    // one tile on
+    if (!lean && ++slot == stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+    if (i >= 0) u_tile += dir;
+    u_ring = i >= 0 ? wrap_add(u_ring, step, ru) : u_ring;
+    u_gap = i >= 0 ? wrap_add(u_gap, step, block) : u_gap;
+    u_p = i >= 0 && !lean ? wrap_add(u_p, step, rp) : u_p;
+    y_ring = wrap_add(y_ring, step, ru);
+    y_gap = wrap_add(y_gap, step, block);
+    x_p = lean ? 0 : wrap_add(x_p, step, rp);
   }
 }
 
@@ -325,85 +735,11 @@ __global__ void const_stencil_spmv_dots_kernel(
         s[tid * kThreads];
 }
 
-// B5. Replaces const_series_msolve_fma_padded / _const_msolve_fma_kernel
-// (pallas_stencil.py:681, :554): B2 with the solver's BLAS1 update folded in
-// ahead of it,
-//   p = a + c1 * (b + c2 * c)   (c given)   or   p = a + c1 * b,
-//   y = B2(p),
-// returning both p and y.  The scalars c1, c2 are read from device memory
-// (0-d tensors of the loop), so the host never waits for them.  Bound by
-// device memory: it reads a, b, (c,) inv_d and writes p and y; the combined
-// p never makes a round trip through device memory before the series reads
-// it.  Each thread block owns an output tile as in B2 and first computes p
-// over the window that P_l reads for its u region,
-// [tile0 - halo - h_l, tile0 + tile + halo + h_l), into shared memory.
-template <typename T>
-__global__ void const_series_msolve_fma_kernel(
-    const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ c,
-    const T* __restrict__ c1p, const T* __restrict__ c2p,
-    const T* __restrict__ inv_d, const T* __restrict__ gap_ext,
-    T* __restrict__ p_out, T* __restrict__ y,
-    const __grid_constant__ Terms tl, const __grid_constant__ Terms tu,
-    long long npad, long long block, long long np_true, long long base,
-    int hpad_ext, int h_l, int halo, int tile) {
-  extern __shared__ unsigned char smem_raw[];
-  T* pw = reinterpret_cast<T*>(smem_raw);  // p over the P_l window
-  const int extp = tile + 2 * (halo + h_l);
-  T* u = pw + extp;                        // u over the tile and its halo
-  const T* gap = gap_ext + hpad_ext;
-  const long long tile0 = static_cast<long long>(blockIdx.x) * tile;
-  if (tile0 < block || tile0 >= block + npad) {
-    for (int m = threadIdx.x; m < tile; m += blockDim.x) {
-      p_out[tile0 + m] = T(0);
-      y[tile0 + m] = T(0);
-    }
-    return;
-  }
-  const T c1 = *c1p;
-  const T c2 = c != nullptr ? *c2p : T(0);
-  const long long w0 = tile0 - halo - h_l;
-  for (int e = threadIdx.x; e < extp; e += blockDim.x) {
-    const long long j = w0 + e;
-    T t;
-    if (c != nullptr) {
-      t = mul_rn(c2, c[j]);
-      t = add_rn(b[j], t);
-      t = mul_rn(c1, t);
-    } else {
-      t = mul_rn(c1, b[j]);
-    }
-    pw[e] = add_rn(a[j], t);
-  }
-  __syncthreads();
-  for (int m = threadIdx.x; m < tile; m += blockDim.x)
-    p_out[tile0 + m] = pw[halo + h_l + m];
-  const int ext = tile + 2 * halo;
-  for (int e = threadIdx.x; e < ext; e += blockDim.x) {
-    const long long q = tile0 - halo + e - block;
-    T v = T(0);
-    if (base + q >= 0 && base + q < np_true)
-      v = mul_rn(mul_rn(stencil_sum(tl, static_cast<const T*>(pw),
-                                    static_cast<long long>(h_l + e)),
-                        gap[(q + block) % block]),
-                 inv_d[tile0 - halo + e]);
-    u[e] = v;
-  }
-  __syncthreads();
-  for (int m = threadIdx.x; m < tile; m += blockDim.x) {
-    const long long q = tile0 + m - block;
-    T out = T(0);
-    if (base + q < np_true)
-      out = mul_rn(stencil_sum(tu, static_cast<const T*>(u),
-                               static_cast<long long>(halo + m)),
-                   gap[q % block]);
-    y[tile0 + m] = out;
-  }
-}
-
-// Raise the block's dynamic shared-memory limit to `bytes` once per kernel.
+// Raise the block's dynamic shared-memory limit to `bytes` once per kernel
+// (also below 48 KB: the default limit counts the static shared memory).
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
-  if (bytes <= 48 * 1024 || bytes <= *allowed) return cudaSuccess;
+  if (bytes <= *allowed) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -455,26 +791,134 @@ int launch_spmv(const void* x, const void* gap, void* y, const TermsT<T>& t,
   }
 }
 
-template <typename T>
-int launch_msolve(const void* x, const void* inv_d, const void* gap_ext,
-                  void* y, const Terms& tl, const Terms& tu, long long npad,
-                  long long block, long long np_true, long long base,
-                  int hpad_ext, int halo, int tile, cudaStream_t stream) {
-  if (tile <= 0 || block % tile != 0 || halo < 0) return kBadArgs;
-  const size_t smem = sizeof(T) * static_cast<size_t>(tile + 2 * halo);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        const_series_msolve_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long grid = (npad + 2 * block) / tile;
-  const_series_msolve_kernel<T><<<static_cast<unsigned>(grid), kThreads, smem,
-                                  stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(inv_d),
-      static_cast<const T*>(gap_ext), static_cast<T*>(y), tl, tu, npad, block,
-      np_true, base, hpad_ext, halo, tile);
+template <typename T, int P>
+int launch_msolve_p(const MsolveArgs<T>& k, int ctas, size_t smem,
+                    cudaStream_t stream) {
+  static size_t allowed = 0;
+  cudaError_t err =
+      allow_smem(const_series_msolve_kernel<T, P>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const_series_msolve_kernel<T, P><<<ctas, kStreamThreads, smem, stream>>>(k);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+bool fill_typed(TermsT<T>* t, const int* off, const void* c, int n, int* lo,
+                int* hi) {
+  if (n < 1 || n > kMaxTerms) return false;
+  t->n = n;
+  *lo = *hi = 0;
+  for (int j = 0; j < n; ++j) {
+    t->off[j] = off[j];
+    t->c[j] = static_cast<const T*>(c)[j];
+    *lo = std::max(*lo, -off[j]);
+    *hi = std::max(*hi, off[j]);
+  }
+  return true;
+}
+
+// The geometry of ops/_kernels.py's msolve_plan, in this order.
+enum Geo {
+  kGeoTile, kGeoStages, kGeoXlo, kGeoXhi, kGeoGpLo, kGeoGpHi, kGeoUlo,
+  kGeoUhi, kGeoRu, kGeoGuLo, kGeoGuHi, kGeoWrap, kGeoCtas
+};
+
+// B2 (nin 1: a = x) and B5 (nin 2 or 3).  Checks every argument the kernel
+// relies on; shared memory as msolve_plan counts it.
+template <typename T>
+int launch_msolve(int nin, const void* a, const void* b, const void* c,
+                  const void* c1, const void* c2, const void* inv_d,
+                  const void* gap, void* p, void* y, const int* off_l,
+                  const void* c_l, int nterms_l, const int* off_u,
+                  const void* c_u, int nterms_u, int npad, int block,
+                  int lim, const int* geo, cudaStream_t stream) {
+  MsolveArgs<T> k;
+  int hl_lo, hl_hi, hu_lo, hu_hi;
+  if (!fill_typed(&k.tl, off_l, c_l, nterms_l, &hl_lo, &hl_hi) ||
+      !fill_typed(&k.tu, off_u, c_u, nterms_u, &hu_lo, &hu_hi))
+    return kBadArgs;
+  const int tile = geo[kGeoTile];
+  constexpr int kVec = 16 / sizeof(T);
+  k.a = static_cast<const T*>(a);
+  k.b = static_cast<const T*>(b);
+  k.c = static_cast<const T*>(c);
+  k.c1p = static_cast<const T*>(c1);
+  k.c2p = static_cast<const T*>(c2);
+  k.inv_d = static_cast<const T*>(inv_d);
+  k.gap = static_cast<const T*>(gap);
+  k.p = static_cast<T*>(p);
+  k.y = static_cast<T*>(y);
+  k.npad = npad;
+  k.block = block;
+  k.lim = lim;
+  k.nin = nin;
+  k.stages = geo[kGeoStages];
+  k.xlo = geo[kGeoXlo];
+  k.xhi = geo[kGeoXhi];
+  k.gp_lo = geo[kGeoGpLo];
+  k.gp_hi = geo[kGeoGpHi];
+  k.ulo = geo[kGeoUlo];
+  k.uhi = geo[kGeoUhi];
+  k.ru = geo[kGeoRu];
+  k.gu_lo = geo[kGeoGuLo];
+  k.gu_hi = geo[kGeoGuHi];
+  k.wrap = geo[kGeoWrap];
+  const int ctas = geo[kGeoCtas];
+  const bool lean = k.stages == 0;
+  const bool streams_ok =
+      a != nullptr && inv_d != nullptr && gap != nullptr && y != nullptr &&
+      (nin == 1 ? p == nullptr
+                : b != nullptr && c1 != nullptr && p != nullptr &&
+                      (nin == 2 || (c != nullptr && c2 != nullptr)));
+  if (nin < 1 || nin > 3 || !streams_ok || tile < kStreamThreads ||
+      tile * sizeof(T) > 8192 || (tile & (tile - 1)) != 0 ||
+      block <= 0 || block % tile != 0 || npad <= 0 || npad % block != 0 ||
+      static_cast<long long>(npad) + 2LL * block >= (1LL << 31) ||
+      lim < 0 || lim > npad || k.stages < 0 || k.stages > 64 || ctas < 1 ||
+      ctas > npad / tile || std::max(hl_lo, hl_hi) > block ||
+      std::max(hu_lo, hu_hi) > block)
+    return kBadArgs;
+  // the p ring: P_l's terms within [-gp_lo, gp_hi] read it
+  if (k.xlo < 0 || k.xhi < 0 || k.gp_lo < 0 || k.gp_hi < 0 ||
+      k.gp_lo % kVec || k.gp_hi % kVec || k.gp_lo > k.xlo * tile ||
+      k.gp_hi > k.xhi * tile || k.xlo * tile > block ||
+      k.xhi * tile > block ||
+      (lean && (k.xlo || k.xhi || k.gp_lo || k.gp_hi)))
+    return kBadArgs;
+  // the u ring holds P_u's whole reach
+  if (k.ulo < 0 || k.uhi < 0 || k.ulo * tile < hu_lo ||
+      k.uhi * tile < hu_hi || k.ulo * tile > block || k.uhi * tile > block ||
+      k.ru % kVec || k.gu_lo % kVec || k.gu_hi % kVec)
+    return kBadArgs;
+  if (k.wrap) {
+    if (k.gu_lo || k.gu_hi || k.ru < (k.uhi + 1) * tile + hu_lo ||
+        k.ru < (k.ulo + 1) * tile + hu_hi)
+      return kBadArgs;
+  } else if (k.ru != (k.ulo + k.uhi + 1) * tile || k.gu_lo < hu_lo ||
+             k.gu_hi < hu_hi || k.gu_lo > k.ru || k.gu_hi > k.ru) {
+    return kBadArgs;
+  }
+  const long long rows =
+      static_cast<long long>(k.stages) * (nin + 1) * tile +
+      (lean ? 0 : k.gp_lo + (k.xlo + k.xhi + 2) * tile + k.gp_hi + tile) +
+      k.gu_lo + k.ru + k.gu_hi;
+  const size_t smem = sizeof(T) * static_cast<size_t>(rows) +
+                      sizeof(std::uint64_t) * k.stages;
+  // beside the kernel's static terms (2 (kMaxTerms + 1) offsets and T's)
+  if (smem + 2 * (kMaxTerms + 1) * (sizeof(int) + sizeof(T)) > kSmemLimit)
+    return kBadArgs;
+  switch (tile / kStreamThreads) {
+    case 1:
+      return launch_msolve_p<T, 1>(k, ctas, smem, stream);
+    case 2:
+      return launch_msolve_p<T, 2>(k, ctas, smem, stream);
+    case 4:
+      return launch_msolve_p<T, 4>(k, ctas, smem, stream);
+    default:
+      if constexpr (sizeof(T) == 4)   // 8 KB tiles: 2048 rows in f32 only
+        return launch_msolve_p<T, 8>(k, ctas, smem, stream);
+      return kBadArgs;
+  }
 }
 
 template <typename T>
@@ -490,35 +934,6 @@ int launch_spmv_dots(const void* x, const void* gap, const void* w, void* y,
       static_cast<const T*>(w), static_cast<T*>(y),
       static_cast<T*>(partials), t, npad, block, np_true, base,
       with_self != 0);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_msolve_fma(const void* a, const void* b, const void* c,
-                      const void* c1, const void* c2, const void* inv_d,
-                      const void* gap_ext, void* p, void* y, const Terms& tl,
-                      const Terms& tu, long long npad, long long block,
-                      long long np_true, long long base, int hpad_ext,
-                      int h_l, int halo, int tile, cudaStream_t stream) {
-  if (tile <= 0 || block % tile != 0 || halo < 0 || h_l < 0 ||
-      h_l + halo > block || (c != nullptr && c2 == nullptr))
-    return kBadArgs;
-  const size_t smem =
-      sizeof(T) * static_cast<size_t>(2 * tile + 4 * halo + 2 * h_l);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        const_series_msolve_fma_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long grid = (npad + 2 * block) / tile;
-  const_series_msolve_fma_kernel<T><<<static_cast<unsigned>(grid), kThreads,
-                                      smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<const T*>(c1),
-      static_cast<const T*>(c2), static_cast<const T*>(inv_d),
-      static_cast<const T*>(gap_ext), static_cast<T*>(p), static_cast<T*>(y),
-      tl, tu, npad, block, np_true, base, hpad_ext, h_l, halo, tile);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -561,24 +976,25 @@ int cmt_const_stencil_spmv(int dtype, const void* x, const void* gap, void* y,
   return kBadArgs;
 }
 
+// B2.  The terms: int32 offsets, coefficients in the dtype; gap points at
+// gap[0] of the layout block; geo is msolve_plan's (see enum Geo).
 int cmt_const_series_msolve(int dtype, const void* x, const void* inv_d,
-                            const void* gap_ext, void* y,
-                            const long long* off_l, const double* c_l,
-                            int nterms_l, const long long* off_u,
-                            const double* c_u, int nterms_u, long long npad,
-                            long long block, long long np_true, long long base,
-                            int hpad_ext, int halo, int tile, void* stream) {
-  Terms tl, tu;
-  if (!fill_terms(&tl, off_l, c_l, nterms_l) ||
-      !fill_terms(&tu, off_u, c_u, nterms_u) || block <= 0)
-    return kBadArgs;
+                            const void* gap, void* y, const int* off_l,
+                            const void* c_l, int nterms_l, const int* off_u,
+                            const void* c_u, int nterms_u, int npad,
+                            int block, int lim, const int* geo,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_msolve<float>(x, inv_d, gap_ext, y, tl, tu, npad, block,
-                                np_true, base, hpad_ext, halo, tile, s);
+    return launch_msolve<float>(1, x, nullptr, nullptr, nullptr, nullptr,
+                                inv_d, gap, nullptr, y, off_l, c_l,
+                                nterms_l, off_u, c_u, nterms_u, npad, block,
+                                lim, geo, s);
   if (dtype == 1)
-    return launch_msolve<double>(x, inv_d, gap_ext, y, tl, tu, npad, block,
-                                 np_true, base, hpad_ext, halo, tile, s);
+    return launch_msolve<double>(1, x, nullptr, nullptr, nullptr, nullptr,
+                                 inv_d, gap, nullptr, y, off_l, c_l,
+                                 nterms_l, off_u, c_u, nterms_u, npad, block,
+                                 lim, geo, s);
   return kBadArgs;
 }
 
@@ -601,27 +1017,25 @@ int cmt_const_stencil_spmv_dots(int dtype, const void* x, const void* gap,
   return kBadArgs;
 }
 
-// c (and with it c2) null: the two-stream form p = a + c1 * b.
-int cmt_const_series_msolve_fma(
-    int dtype, const void* a, const void* b, const void* c, const void* c1,
-    const void* c2, const void* inv_d, const void* gap_ext, void* p, void* y,
-    const long long* off_l, const double* c_l, int nterms_l,
-    const long long* off_u, const double* c_u, int nterms_u, long long npad,
-    long long block, long long np_true, long long base, int hpad_ext,
-    int h_l, int halo, int tile, void* stream) {
-  Terms tl, tu;
-  if (!fill_terms(&tl, off_l, c_l, nterms_l) ||
-      !fill_terms(&tu, off_u, c_u, nterms_u) || block <= 0)
-    return kBadArgs;
+// B5, as B2.  c (and with it c2) null: the two-stream form p = a + c1 * b.
+int cmt_const_series_msolve_fma(int dtype, const void* a, const void* b,
+                                const void* c, const void* c1, const void* c2,
+                                const void* inv_d, const void* gap, void* p,
+                                void* y, const int* off_l, const void* c_l,
+                                int nterms_l, const int* off_u,
+                                const void* c_u, int nterms_u, int npad,
+                                int block, int lim, const int* geo,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nin = c != nullptr ? 3 : 2;
   if (dtype == 0)
-    return launch_msolve_fma<float>(a, b, c, c1, c2, inv_d, gap_ext, p, y, tl,
-                                    tu, npad, block, np_true, base, hpad_ext,
-                                    h_l, halo, tile, s);
+    return launch_msolve<float>(nin, a, b, c, c1, c2, inv_d, gap, p, y,
+                                off_l, c_l, nterms_l, off_u, c_u, nterms_u,
+                                npad, block, lim, geo, s);
   if (dtype == 1)
-    return launch_msolve_fma<double>(a, b, c, c1, c2, inv_d, gap_ext, p, y,
-                                     tl, tu, npad, block, np_true, base,
-                                     hpad_ext, h_l, halo, tile, s);
+    return launch_msolve<double>(nin, a, b, c, c1, c2, inv_d, gap, p, y,
+                                 off_l, c_l, nterms_l, off_u, c_u, nterms_u,
+                                 npad, block, lim, geo, s);
   return kBadArgs;
 }
 

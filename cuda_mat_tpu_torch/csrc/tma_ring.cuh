@@ -1,9 +1,10 @@
 // Hopper (sm_90a) helpers shared by the kernels that stream operands
-// through a shared-memory ring (B1 in const_stencil.cu, B7 in stencil2d.cu,
-// B4b in banded_trisolve.cu): a stage of the ring is filled by
-// one-dimensional TMA bulk copies (cp.async.bulk) that complete on the
+// through a shared-memory ring (B1, B2 and B5 in const_stencil.cu, B7 in
+// stencil2d.cu, B4b in banded_trisolve.cu): a stage of the ring is filled
+// by one-dimensional TMA bulk copies (cp.async.bulk) that complete on the
 // stage's mbarrier, and every thread waits on that barrier's phase before
-// it reads the stage.  16-byte vector types for the loads and stores
+// it reads the stage.  Several copies (streams) may share a stage's
+// barrier: mbar_expect takes the sum of their bytes.  16-byte vector types for the loads and stores
 // of whole 16-byte words, and the _rn arithmetic that keeps the kernels
 // bitwise equal to their plain PyTorch twins (nvcc never contracts _rn
 // products and sums into an FMA).

@@ -36,13 +36,17 @@ MAX_DIAGS = 128               # kMaxDiags of kernel B3's by-value offsets
 SMEM_LIMIT = 232448           # dynamic shared memory one block may use on H100
 SMEM_PER_SM = 233472          # shared memory of one SM (228 KB) ...
 SMEM_RESERVED = 1024          # ... less 1 KB for each resident block
-STATIC_SMEM = 2048            # B1's and B7's static shared memory (terms)
+STATIC_SMEM = 2048            # B1's, B2's, B5's and B7's static shared
+                              # memory (terms)
 DOTS_BLOCK = 256              # kThreads: the rows each B6 partial sums
 STREAM_THREADS = 256          # threads of a B1 or B7 block
 STREAM_BLOCKS_PER_SM = 4      # their __launch_bounds__ minimum
 STAGE_BYTES = 8192            # one B1 ring stage: a tile of x
 ROW_BYTES = 4096              # one B7 strip row of x
 IN_FLIGHT_BYTES = 49152       # copies the rings of one SM keep in flight
+MSOLVE_TILES = (2048, 1024, 512, 256)   # B2/B5 tiles: 256 threads x P rows
+MSOLVE_BLOCKS_PER_SM = {8: 2, 4: 4, 2: 4, 1: 4}   # their __launch_bounds__
+                                                  # minimum, by P
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -88,12 +92,12 @@ def library() -> ctypes.CDLL:
         "cmt_const_stencil_spmv": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _P],
         "cmt_const_series_msolve": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                    _I, _LL, _LL, _LL, _LL, _I, _I, _I, _P],
+                                    _I, _I, _I, _I, _P, _P],
         "cmt_const_stencil_spmv_dots": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
                                         _LL, _LL, _LL, _LL, _I, _P],
         "cmt_const_series_msolve_fma": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _P, _P, _P, _I, _P, _P, _I, _LL, _LL,
-                                        _LL, _LL, _I, _I, _I, _I, _P]},
+                                        _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                                        _I, _P, _P]},
         headers=("tma_ring.cuh",))
 
 
@@ -129,45 +133,15 @@ def _offset_array(offsets) -> np.ndarray:
     return np.asarray(offsets, np.int32)
 
 
-def msolve_tile(block: int) -> int:
-    """Output rows per thread block of the fused msolve kernel: a divisor of
-    ``block`` (a multiple of 1024 in every planned layout), so a tile never
-    straddles a pad boundary."""
-    return 2048 if block % 2048 == 0 else 1024
-
-
-def msolve_fits(block: int, terms_l, terms_u, itemsize: int) -> bool:
-    """The fused msolve kernel takes this layout: both polynomials fit the
-    term struct, P_l's reads over the u region stay inside the pad block,
-    and the u tile (tile + 2·halo rows) fits shared memory."""
-    h_l = max(abs(t[0]) for t in terms_l)
-    h_u = max(abs(t[0]) for t in terms_u)
-    return (len(terms_l) <= MAX_TERMS and len(terms_u) <= MAX_TERMS
-            and h_l + h_u <= block and block % 1024 == 0
-            and (msolve_tile(block) + 2 * h_u) * itemsize <= SMEM_LIMIT)
-
-
-def msolve_fma_fits(block: int, terms_l, terms_u, itemsize: int) -> bool:
-    """Kernel B5 takes this layout: B2's term and halo limits, and shared
-    memory for the combined vector over P_l's window (tile + 2·(h_u + h_l)
-    rows) plus the u tile (tile + 2·h_u rows).  Both forms (two and three
-    input streams) hold the same shared memory."""
-    h_l = max(abs(t[0]) for t in terms_l)
-    h_u = max(abs(t[0]) for t in terms_u)
-    tile = msolve_tile(block)
-    return (msolve_fits(block, terms_l, terms_u, itemsize)
-            and (2 * tile + 4 * h_u + 2 * h_l) * itemsize <= SMEM_LIMIT)
-
-
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _blocks_per_sm(smem: int) -> int:
-    """Blocks of ``smem`` dynamic shared memory that one SM holds at once,
-    at most STREAM_BLOCKS_PER_SM."""
-    return max(1, min(STREAM_BLOCKS_PER_SM, SMEM_PER_SM // (
-        smem + STATIC_SMEM + SMEM_RESERVED)))
+def _blocks_per_sm(smem: int, cap: int = STREAM_BLOCKS_PER_SM) -> int:
+    """Blocks of ``smem`` dynamic shared memory (beside the static terms)
+    that one SM holds at once, at most ``cap``."""
+    return max(1, min(cap, SMEM_PER_SM // (smem + STATIC_SMEM
+                                           + SMEM_RESERVED)))
 
 
 def _ahead(stage_bytes: int) -> int:
@@ -220,6 +194,173 @@ def spmv_plan(npad: int, block: int, reach: int, itemsize: int,
         stages, smem = smem_of(halo)
     ctas = min(npad // tile, sms * _blocks_per_sm(smem))
     return SpmvPlan(tile, halo, stages, ctas, smem, 16 // itemsize)
+
+
+def _reach(terms) -> Tuple[int, int]:
+    """Rows a term set reaches behind and ahead: (max -off, max off), >= 0."""
+    return (max(0, -min(t[0] for t in terms)),
+            max(0, max(t[0] for t in terms)))
+
+
+@dataclasses.dataclass(frozen=True)
+class MsolvePlan:
+    """Launch geometry of kernels B2 and B5 (``csrc/const_stencil.cu``,
+    ``const_series_msolve_kernel``): rings of ``tile``-row tiles in shared
+    memory, persistent blocks each with one run of tiles."""
+
+    tile: int      # rows of a tile: a power of two dividing block, 256 to
+                   # 8 KB of one stream (STREAM_THREADS threads x P rows)
+    nin: int       # input streams: 1 (B2's x), 2 or 3 (B5's a, b[, c])
+    stages: int    # input ring stages, each the nin streams' tiles and one
+                   # of inv_d; 0: lean mode (inputs from device memory)
+    xlo: int       # tiles the p ring keeps behind the u tile ...
+    xhi: int       # ... and ahead of it
+    gp_lo: int     # rows of P_l's reach read from the p ring (a term past
+    gp_hi: int     # them reads device memory), copied around the ring
+    ulo: int       # tiles of P_u's reach behind a y tile ...
+    uhi: int       # ... and ahead: the u ring holds all of it
+    ru: int        # rows of the u ring
+    gu_lo: int     # rows copied before and after the u ring (0 with wrap)
+    gu_hi: int
+    wrap: bool     # the u ring wraps each read (its copies do not fit)
+    smem: int      # dynamic shared memory of a block, in bytes
+    blocks: int    # blocks one SM holds
+    ctas: int = 0  # persistent blocks, each with one run of tiles
+    run: int = 0   # tiles of the longest run
+
+    @property
+    def geo(self) -> Tuple[int, ...]:
+        """The kernel's geometry argument (``enum Geo`` of the source)."""
+        return (self.tile, self.stages, self.xlo, self.xhi, self.gp_lo,
+                self.gp_hi, self.ulo, self.uhi, self.ru, self.gu_lo,
+                self.gu_hi, int(self.wrap), self.ctas)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _ceil(a, b) * b
+
+
+def _msolve_smem(tile, nin, stages, xlo, xhi, gp, ru, gu, itemsize) -> int:
+    """Bytes of shared memory the kernel lays out (as its launcher counts
+    them): the input ring, the p ring with its copies, the u ring with its
+    copies, the staging tile, the barriers; lean mode only the u ring."""
+    rows = gu[0] + ru + gu[1]
+    if stages:
+        rows += (stages * (nin + 1) * tile + gp[0] + (xlo + xhi + 2) * tile
+                 + gp[1] + tile)
+    return rows * itemsize + 8 * stages
+
+
+def msolve_candidates(block: int, reach_l: Tuple[int, int],
+                      reach_u: Tuple[int, int], itemsize: int, nin: int):
+    """Every ring geometry of B2 (``nin`` 1) or B5 that fits shared memory,
+    for terms reaching ``reach_l`` / ``reach_u`` rows (behind, ahead), as
+    (key, plan) without the grid: each tile of MSOLVE_TILES that divides
+    ``block``; the u ring with its copies, or wrapping; the p ring holding
+    all of P_l's reach, or less (farther terms read device memory); 1 to
+    16 input stages, or none (lean mode, key None).  The larger key is
+    preferred: P_l's whole reach in the ring, no wrap, two blocks an SM
+    rather than one, larger tiles, more blocks, two stages rather than one,
+    fewer stages.  The kernel's steps are bound by their own work, not by
+    the loads' latency: on an H100 one or two stages time alike and larger
+    tiles are faster (``tools/msolve_sweep.py``)."""
+    vec = 16 // itemsize
+    for tile in MSOLVE_TILES:
+        if tile * itemsize > STAGE_BYTES or block % tile:
+            continue
+        cap = MSOLVE_BLOCKS_PER_SM[tile // STREAM_THREADS]
+        ulo, uhi = _ceil(reach_u[0], tile), _ceil(reach_u[1], tile)
+        rings = [(False, (ulo + uhi + 1) * tile,
+                  (_round_up(reach_u[0], vec), _round_up(reach_u[1], vec))),
+                 (True, _round_up(max((uhi + 1) * tile + reach_u[0],
+                                      (ulo + 1) * tile + reach_u[1]), vec),
+                  (0, 0))]
+        full = (_ceil(reach_l[0], tile), _ceil(reach_l[1], tile))
+        for wrap, ru, gu in rings:
+            smem = _msolve_smem(tile, nin, 0, 0, 0, (0, 0), ru, gu, itemsize)
+            if smem <= SMEM_LIMIT - STATIC_SMEM:
+                yield None, MsolvePlan(tile, nin, 0, 0, 0, 0, 0, ulo, uhi,
+                                       ru, gu[0], gu[1], wrap, smem,
+                                       _blocks_per_sm(smem, cap))
+            for h in range(max(full), -1, -1):
+                xlo, xhi = min(full[0], h), min(full[1], h)
+                gp = (min(_round_up(reach_l[0], vec), xlo * tile),
+                      min(_round_up(reach_l[1], vec), xhi * tile))
+                for stages in range(1, 17):
+                    smem = _msolve_smem(tile, nin, stages, xlo, xhi, gp, ru,
+                                        gu, itemsize)
+                    if smem > SMEM_LIMIT - STATIC_SMEM:
+                        break
+                    blocks = _blocks_per_sm(smem, cap)
+                    yield ((xlo, xhi) == full, not wrap, min(blocks, 2),
+                           tile, blocks, min(stages, 2), -stages), MsolvePlan(
+                               tile, nin, stages, xlo, xhi, gp[0], gp[1],
+                               ulo, uhi, ru, gu[0], gu[1], wrap, smem,
+                               blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def _msolve_geometry(block: int, reach_l: Tuple[int, int],
+                     reach_u: Tuple[int, int], itemsize: int, nin: int):
+    """The preferred of :func:`msolve_candidates`; lean mode (the u ring
+    alone, without wrap and in the largest tile if it can) only where no
+    other fits; None where not even that fits."""
+    best, lean = None, None
+    for key, plan in msolve_candidates(block, reach_l, reach_u, itemsize,
+                                       nin):
+        if key is not None:
+            if best is None or key > best[0]:
+                best = key, plan
+        elif lean is None or (not plan.wrap, plan.tile) > lean[0]:
+            lean = (not plan.wrap, plan.tile), plan
+    return (best or lean or (None, None))[1]
+
+
+def _msolve_layout_ok(block: int, terms_l, terms_u) -> bool:
+    h_l = max(abs(t[0]) for t in terms_l)
+    h_u = max(abs(t[0]) for t in terms_u)
+    return (0 < len(terms_l) <= MAX_TERMS and 0 < len(terms_u) <= MAX_TERMS
+            and h_l + h_u <= block and block % 1024 == 0)
+
+
+@functools.lru_cache(maxsize=64)
+def msolve_plan(npad: int, block: int, terms_l, terms_u, itemsize: int,
+                nin: int, sms: int) -> MsolvePlan:
+    """B2's (``nin`` 1) or B5's (2 or 3 input streams) launch geometry for
+    ``npad`` strided rows in blocks of ``block``, on ``sms`` SMs: the rings
+    of :func:`_msolve_geometry`, and as many persistent blocks as the SMs
+    hold, at most one per tile.  Raises ValueError on a layout the kernel
+    does not take."""
+    if not _msolve_layout_ok(block, terms_l, terms_u) or npad <= 0 \
+            or npad % block:
+        raise ValueError(f"kernels B2/B5 take 1-{MAX_TERMS} terms a"
+                         " polynomial, max|off_l| + max|off_u| <= block and"
+                         f" blocks that are multiples of 1024 (block {block},"
+                         f" npad {npad})")
+    geo = _msolve_geometry(block, _reach(terms_l), _reach(terms_u),
+                           itemsize, nin)
+    if geo is None:
+        raise ValueError("kernels B2/B5: P_u's reach does not fit shared"
+                         " memory")
+    ntiles = npad // geo.tile
+    ctas = min(ntiles, sms * geo.blocks)
+    return dataclasses.replace(geo, ctas=ctas, run=_ceil(ntiles, ctas))
+
+
+def msolve_fits(block: int, terms_l, terms_u, itemsize: int) -> bool:
+    """Kernel B2 takes this layout: both polynomials fit the term struct,
+    P_l's and P_u's reaches together stay inside the pad block, and a plan
+    exists (at least P_u's reach in a u ring in shared memory)."""
+    return _msolve_layout_ok(block, terms_l, terms_u) and _msolve_geometry(
+        block, _reach(terms_l), _reach(terms_u), itemsize, 1) is not None
+
+
+def msolve_fma_fits(block: int, terms_l, terms_u, itemsize: int) -> bool:
+    """Kernel B5 takes this layout, in both forms: B2's conditions with
+    three input streams (two need less)."""
+    return msolve_fits(block, terms_l, terms_u, itemsize) and \
+        _msolve_geometry(block, _reach(terms_l), _reach(terms_u), itemsize,
+                         3) is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -390,28 +531,52 @@ def const_stencil_spmv(x_pad: torch.Tensor, gapmask: torch.Tensor, terms,
     return y
 
 
+def _msolve_launch(name: str, lib, streams, outs, inv_d_pad, gapmask_ext,
+                   terms_l, terms_u, np_true: int, block: int, base: int,
+                   nin: int, *extra):
+    """Check B2's or B5's operands, plan the launch and call the C entry
+    ``name`` with ``extra`` (the operand pointers) first."""
+    x = streams[0]
+    if x.shape[0] >= 2 ** 31:
+        raise ValueError(f"padded length {x.shape[0]} needs 64-bit indices;"
+                         " kernels B2/B5 take 32-bit ones")
+    if any(t.data_ptr() % 16 for t in (*streams, *outs, inv_d_pad)):
+        raise ValueError("kernels B2/B5 stream their vectors by 16-byte"
+                         " copies: each must be 16-byte aligned")
+    npad = x.shape[0] - 2 * block
+    plan = msolve_plan(npad, block, tuple(terms_l), tuple(terms_u),
+                       x.element_size(), nin, _sm_count(x.device))
+    off_l, c_l = _typed_terms(tuple(terms_l), x.dtype)
+    off_u, c_u = _typed_terms(tuple(terms_u), x.dtype)
+    hpad = (gapmask_ext.shape[0] - block) // 2
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, name)(
+            _DTYPE_CODE[x.dtype], *extra, off_l.ctypes.data, c_l.ctypes.data,
+            len(terms_l), off_u.ctypes.data, c_u.ctypes.data, len(terms_u),
+            npad, block, min(max(np_true - base, 0), npad),
+            _geo_array(plan).ctypes.data,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, rc, name[4:])
+
+
+@functools.lru_cache(maxsize=64)
+def _geo_array(plan: MsolvePlan) -> np.ndarray:
+    return np.asarray(plan.geo, np.int32)
+
+
 def const_series_msolve(x_pad: torch.Tensor, inv_d_pad: torch.Tensor,
                         gapmask_ext: torch.Tensor, terms_l, terms_u,
                         np_true: int, block: int, base: int) -> torch.Tensor:
-    """Launch kernel B2 on ``x_pad``'s device and current stream."""
+    """Launch kernel B2 on ``x_pad``'s device and current stream, with the
+    layout's cached :func:`msolve_plan` (ValueError where it has none)."""
     lib = library()
     _check_cuda(x_pad, inv_d_pad, gapmask_ext)
-    if not msolve_fits(block, terms_l, terms_u, x_pad.element_size()):
-        raise ValueError("the fused msolve kernel does not take this layout"
-                         " (terms, halo or shared memory)")
     y = torch.empty_like(x_pad)
-    off_l, c_l = _term_arrays(tuple(terms_l))
-    off_u, c_u = _term_arrays(tuple(terms_u))
-    halo = max(abs(t[0]) for t in terms_u)
-    with torch.cuda.device(x_pad.device):
-        rc = lib.cmt_const_series_msolve(
-            _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(), inv_d_pad.data_ptr(),
-            gapmask_ext.data_ptr(), y.data_ptr(), off_l.ctypes.data,
-            c_l.ctypes.data, len(terms_l), off_u.ctypes.data, c_u.ctypes.data,
-            len(terms_u), x_pad.shape[0] - 2 * block, block, np_true, base,
-            (gapmask_ext.shape[0] - block) // 2, halo, msolve_tile(block),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, rc, "const_series_msolve")
+    gap = gapmask_ext[(gapmask_ext.shape[0] - block) // 2:]
+    _msolve_launch("cmt_const_series_msolve", lib, (x_pad,), (y,), inv_d_pad,
+                   gapmask_ext, terms_l, terms_u, np_true, block, base, 1,
+                   x_pad.data_ptr(), inv_d_pad.data_ptr(), gap.data_ptr(),
+                   y.data_ptr())
     return y
 
 
@@ -460,27 +625,16 @@ def const_series_msolve_fma(a_pad: torch.Tensor, c1: torch.Tensor,
     _check_cuda(*streams, inv_d_pad, gapmask_ext, *scalars)
     if any(s.numel() != 1 for s in scalars):
         raise ValueError("c1 and c2 must be one-element tensors")
-    if not msolve_fma_fits(block, terms_l, terms_u, a_pad.element_size()):
-        raise ValueError("kernel B5 does not take this layout (terms, halo"
-                         " or shared memory)")
     p = torch.empty_like(a_pad)
     y = torch.empty_like(a_pad)
-    off_l, c_l = _term_arrays(tuple(terms_l))
-    off_u, c_u = _term_arrays(tuple(terms_u))
+    gap = gapmask_ext[(gapmask_ext.shape[0] - block) // 2:]
     ptr = [v.data_ptr() for v in (c_pad, c2)] if c_pad is not None \
         else [None, None]
-    with torch.cuda.device(a_pad.device):
-        rc = lib.cmt_const_series_msolve_fma(
-            _DTYPE_CODE[a_pad.dtype], a_pad.data_ptr(), b_pad.data_ptr(),
-            ptr[0], c1.data_ptr(), ptr[1], inv_d_pad.data_ptr(),
-            gapmask_ext.data_ptr(), p.data_ptr(), y.data_ptr(),
-            off_l.ctypes.data, c_l.ctypes.data, len(terms_l),
-            off_u.ctypes.data, c_u.ctypes.data, len(terms_u),
-            a_pad.shape[0] - 2 * block, block, np_true, base,
-            (gapmask_ext.shape[0] - block) // 2,
-            max(abs(t[0]) for t in terms_l), max(abs(t[0]) for t in terms_u),
-            msolve_tile(block), torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, rc, "const_series_msolve_fma")
+    _msolve_launch("cmt_const_series_msolve_fma", lib, streams, (p, y),
+                   inv_d_pad, gapmask_ext, terms_l, terms_u, np_true, block,
+                   base, len(streams), a_pad.data_ptr(), b_pad.data_ptr(),
+                   ptr[0], c1.data_ptr(), ptr[1], inv_d_pad.data_ptr(),
+                   gap.data_ptr(), p.data_ptr(), y.data_ptr())
     return p, y
 
 

@@ -307,10 +307,135 @@ def test_msolve_fma_fit_check():
     assert _kernels.msolve_fma_fits(op.block, tl, tu, 8)
     assert not _kernels.msolve_fma_fits(op.block, tl, tu + ((op.block, 1.0),),
                                         8)
-    # a halo whose u tile still fits B2 but not B5's window beside it
+    # a halo whose u tile fitted B2 but not B5's p window beside it: B5's
+    # streaming rings hold it too now; a u reach whose ring does not fit
+    # shared memory even alone is refused by both
     wide = tu + ((9000, 1.0),)
     assert _kernels.msolve_fits(1 << 17, tl, wide, 8)
-    assert not _kernels.msolve_fma_fits(1 << 17, tl, wide, 8)
+    assert _kernels.msolve_fma_fits(1 << 17, tl, wide, 8)
+    both = wide + ((-20000, 1.0), (20000, 1.0))
+    assert not _kernels.msolve_fits(1 << 17, tl, both, 8)
+    assert not _kernels.msolve_fma_fits(1 << 17, tl, both, 8)
+
+
+FMA_PAIRS = [(0.73, -1.21), (-0.4, 0.0), (0.0, 5.0)]
+
+
+def _msolve_cases(dtype, device):
+    """Layouts and terms at the edges of B2's and B5's design, each as
+    (name, mode, x_pad, inv_d_pad, gapmask_ext, terms_l, terms_u, np_true,
+    block, sub, base): ``mode`` names what the case reaches of the plan
+    (``_kernels.msolve_plan``).  x and inv_d are random in the pad blocks
+    too where a shard's base is set, as a shard's halo would be."""
+    rng = np.random.default_rng(8)
+    f32 = dtype == torch.float32
+    cases = []
+    # the mat10000 layout: fewer tiles than blocks on a card, runs of one
+    # tile, np_true (12800) inside a tile
+    a, op, pre = _setup(100, 100, 4, dtype, device)
+    cases.append(("mat10000 layout", "one-tile runs",
+                  op.pad_vec(rng.standard_normal(a.n)), pre.inv_d,
+                  pre.gap_ext, pre.nl.strided_terms, pre.nu.strided_terms,
+                  op.np_true, op.block, op.sub, 0))
+
+    def synthetic(name, mode, block, nblocks, tl, tu, np_true, base, sub,
+                  pads):
+        n = (nblocks + 2) * block
+        gap = torch.zeros(block, dtype=dtype)
+        gap.view(-1, 128)[:, :100] = 1.0
+        ext = torch.cat([gap[-1024:], gap, gap[:1024]])
+        x = torch.from_numpy(rng.standard_normal(n)).to(dtype)
+        inv_d = torch.from_numpy(rng.uniform(0.5, 2.0, n)).to(dtype)
+        if not pads:
+            for v in (x, inv_d):
+                v[:block] = 0
+                v[n - block:] = 0
+        cases.append((name, mode, x.to(device), inv_d.to(device),
+                      ext.to(device), tl, tu, np_true, block, sub, base))
+
+    both_l = ((-300, 0.5), (-1, -1.0), (0, 4.0), (2, -1.0), (129, 0.25),
+              (700, -0.125))
+    both_u = ((-130, 0.3), (0, 1.0), (1, -0.5), (257, 0.7), (-3, 0.1))
+    synthetic("offsets of both signs in both polynomials", "both signs",
+              4096, 3, both_l, both_u, 3 * 4096 - 700, 0, 1024, False)
+    synthetic("a shard's base: the tail inside the vector, random pads",
+              "both signs", 4096, 3, both_l, both_u, 3 * 4096 + 500, 1000,
+              1024, True)
+    synthetic("a shard past np_true: all zero", "both signs", 4096, 3,
+              both_l, both_u, 5000, 5005, 1024, True)
+    neumann = (tuple((-o, 1.0 / (1 + o)) for o in (384, 257, 256, 130, 129,
+                                                   128, 3, 2, 1, 0)),
+               tuple((o, 1.0 / (2 + o)) for o in (0, 1, 2, 3, 128, 129, 130,
+                                                  256, 257, 384)))
+    synthetic("runs of uneven length", "uneven runs", 1 << 17, 5, *neumann,
+              5 * (1 << 17) - 1234, 0, 2048, False)
+    far = (((-60000, 0.5), (-1, -1.0), (0, 4.0), (1, -1.0)),
+           ((0, 1.0), (1, -0.5), (128, 0.25)))
+    synthetic("a P_l term past the p ring's halo", "far terms", 1 << 17, 2,
+              *far, 2 * (1 << 17) - 99, 0, 65536, False)
+    for mode, h in (("wrap", 20000 if f32 else 9000),
+                    ("lean", 28000 if f32 else 14000)):
+        synthetic(f"P_u reaching {h} rows both ways", mode, 1 << 17, 2,
+                  ((-1, -1.0), (0, 4.0), (1, -1.0)),
+                  ((-h, 0.3), (-1, 0.5), (0, 1.0), (h, 0.2)),
+                  2 * (1 << 17) - 5, 0, 65536, False)
+    return cases
+
+
+def _fma_inputs(x, block):
+    """B5's a, b, c from x's layout: random, zero in the pad blocks (as the
+    loop's vectors are)."""
+    rng = np.random.default_rng(9)
+    out = []
+    for _ in range(3):
+        v = torch.from_numpy(rng.standard_normal(x.shape[0])).to(x.dtype)
+        v[:block] = 0
+        v[x.shape[0] - block:] = 0
+        out.append(v.to(x.device))
+    return out
+
+
+def _check_mode(mode, plan, npad):
+    tiles = npad // plan.tile
+    if mode == "one-tile runs":
+        assert plan.ctas == tiles < 132 and plan.run == 1
+    elif mode == "both signs":
+        assert plan.gp_lo and plan.gp_hi and plan.gu_lo and plan.gu_hi
+    elif mode == "uneven runs":
+        assert plan.run > 1 and tiles % plan.ctas
+    elif mode == "far terms":
+        assert plan.stages and plan.gp_lo < 60000
+    elif mode == "wrap":
+        assert plan.stages and plan.wrap
+    else:
+        assert mode == "lean" and plan.stages == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_msolve_cases_reach_their_modes_and_run_the_twins_on_cpu(dtype):
+    """The card cases below on CPU tensors: each layout's plan (as an H100
+    would get it, 132 SMs) reaches the mode the case names, for B2 and both
+    forms of B5, and the front ends take the layouts and run the twins,
+    counting no launch."""
+    tst.reset_launch_counts()
+    for name, mode, x, inv_d, ext, tl, tu, np_true, block, sub, base in \
+            _msolve_cases(dtype, "cpu"):
+        npad = x.shape[0] - 2 * block
+        for nin in (1, 2, 3):
+            _check_mode(mode, _kernels.msolve_plan(
+                npad, block, tuple(tl), tuple(tu), x.element_size(), nin,
+                132), npad)
+        args = (inv_d, ext, tl, tu, np_true, block, sub, base)
+        assert torch.equal(tst.const_series_msolve_padded(x, *args),
+                           tst.const_series_msolve_padded_plain(x, *args))
+        a, b, c = _fma_inputs(x, block)
+        one = torch.tensor(0.5, dtype=dtype)
+        assert all(torch.equal(u, v) for u, v in zip(
+            tst.const_series_msolve_fma_padded(a, one, b, one, c, *args),
+            tst.const_series_msolve_fma_padded_plain(a, one, b, one, c,
+                                                     *args)))
+    assert tst.const_series_msolve_padded.launches == 0
+    assert tst.const_series_msolve_fma_padded.launches == 0
 
 
 @pytest.mark.gpu
@@ -338,6 +463,23 @@ def test_kernels_equal_twins_on_card(dtype):
         pre.nu.strided_terms, op.np_true, op.block, op.sub)
     assert torch.equal(y, y_plain)
     assert torch.equal(z, z_plain)
+    # B2 at the edges of its design (_msolve_cases): bitwise equal to its
+    # twin, output poisoned first, the same over two launches, pads zero
+    cases = _msolve_cases(dtype, "cuda")
+    for name, mode, x, inv_d, ext, tl, tu, np_true, block, sub, base in \
+            cases:
+        args = (inv_d, ext, tl, tu, np_true, block, sub, base)
+        torch.full_like(x, float("nan"))
+        z = tst.const_series_msolve_padded(x, *args)
+        torch.full_like(x, float("nan"))
+        z2 = tst.const_series_msolve_padded(x, *args)
+        z_plain = tst.const_series_msolve_padded_plain(x, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(z, z_plain), name
+        assert torch.equal(z, z2), name
+        assert torch.count_nonzero(z[:block]) == 0, name
+        assert torch.count_nonzero(z[z.shape[0] - block:]) == 0, name
+    assert tst.const_series_msolve_padded.launches == 1 + 2 * len(cases)
 
 
 @pytest.mark.gpu
@@ -426,7 +568,7 @@ def test_fusion_kernels_equal_twins_on_card(dtype):
     (av, bv, cv), layout = _fusion_args(op, pre)
     tst.reset_launch_counts()
     pads = op.pad_vec(np.ones(a.n)) == 0
-    for c1, c2 in [(0.73, -1.21), (-0.4, 0.0), (0.0, 5.0)]:
+    for c1, c2 in FMA_PAIRS:
         s1 = torch.tensor(c1, dtype=dtype, device="cuda")
         s2 = torch.tensor(c2, dtype=dtype, device="cuda")
         for cc, c2c in ((cv, s2), (None, None)):
@@ -440,6 +582,35 @@ def test_fusion_kernels_equal_twins_on_card(dtype):
             assert torch.equal(p, pp) and torch.equal(y, yp)
             assert not p[pads].any() and not y[pads].any()
     assert tst.const_series_msolve_fma_padded.launches == 6
+    # B5 at the edges of its design, both forms, every scalar pair: p and y
+    # bitwise equal to the twin, outputs poisoned first, the same over two
+    # launches, pads zero
+    cases = _msolve_cases(dtype, "cuda")
+    for name, mode, x, inv_d, ext, tl, tu, np_true, block, sub, base in \
+            cases:
+        args = (inv_d, ext, tl, tu, np_true, block, sub, base)
+        a, b, c = _fma_inputs(x, block)
+        for c1, c2 in FMA_PAIRS:
+            s1 = torch.tensor(c1, dtype=dtype, device="cuda")
+            s2 = torch.tensor(c2, dtype=dtype, device="cuda")
+            for cc, c2c in ((c, s2), (None, None)):
+                outs = []
+                for _ in range(2):
+                    torch.full_like(x, float("nan"))
+                    torch.full_like(x, float("nan"))
+                    outs.append(tst.const_series_msolve_fma_padded(
+                        a, s1, b, c2c, cc, *args))
+                pp, yp = tst.const_series_msolve_fma_padded_plain(
+                    a, s1, b, c2c, cc, *args)
+                torch.cuda.synchronize()
+                (p, y), (p2, y2) = outs
+                assert torch.equal(p, pp) and torch.equal(y, yp), name
+                assert torch.equal(p, p2) and torch.equal(y, y2), name
+                for v in (p, y):
+                    assert torch.count_nonzero(v[:block]) == 0, name
+                    assert torch.count_nonzero(v[v.shape[0] - block:]) == 0
+    assert tst.const_series_msolve_fma_padded.launches == \
+        6 + 2 * 2 * len(FMA_PAIRS) * len(cases)
     for ws, with_self in (((bv,), True), ((bv,), False)):
         torch.full_like(av, float("nan"))
         y, d = op.matvec_dots(av, ws, with_self=with_self)

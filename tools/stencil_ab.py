@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Compare the stencil SpMV kernels B1 and B7 of several checkouts of the
-port on one CUDA card, in turns, with chip_smoke.py's own checks and timers.
+"""Compare the stencil kernels B1, B2, B5, B6 and B7 of several checkouts
+of the port on one CUDA card, in turns, with chip_smoke.py's own checks and
+timers.
 
     python3 tools/stencil_ab.py ROOT [ROOT ...]
 
 Each ROOT (a directory holding ``cuda_mat_tpu_torch/``; ``.`` for this
 checkout) runs in a process of its own, in the order given, so that two
 versions are compared on one card as old, new, new, old.  The process
-imports ROOT's package and this checkout's ``chip_smoke.py`` and runs two of
-its phases: B1 and B2 against their twins at the flagship layout in f32
-(``kernel_parity``), and the 3163 x 3163 grid (``stencil2d_parity``: B1 and
-B7, constant and variable coefficients, in f32 and f64).  They print each
-kernel's time from launch to launch (``ms``) and on the device
-(``device_ms``) beside its bound, and fail where a kernel differs from its
-twin.  The last line is a JSON list of {root, stats}: chip_smoke's stats of
-B1, B2 and B7.
+imports ROOT's package and this checkout's ``chip_smoke.py`` and runs three
+of its phases: B1 and B2 against their twins at the flagship layout in f32
+(``kernel_parity``), B5 (three and two input streams) and B6 at the
+flagship's fuse_blas1 layout in f32 (``fusion_parity``), and the 3163 x
+3163 grid (``stencil2d_parity``: B1 and B7, constant and variable
+coefficients, in f32 and f64).  They print each kernel's time from launch
+to launch (``ms``) and on the device (``device_ms``) beside its bound, and
+fail where a kernel differs from its twin.  Then it profiles 30 iterations
+of the flagship loop and of its fuse_blas1 loop (path 4a (i)) with
+``chip_smoke.loop_split``.  The last line is a JSON list of {root, stats}:
+chip_smoke's stats of the five kernels.
 """
 
 import importlib.util
@@ -24,12 +28,13 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NAMES = ("const_stencil_spmv", "const_series_msolve", "stencil2d_spmv")
+NAMES = ("const_stencil_spmv", "const_series_msolve", "const_series_msolve_fma",
+         "const_stencil_spmv_dots", "stencil2d_spmv")
 
 
 def one(root):
-    """Run the two phases with the package under ``root``; return the
-    stats."""
+    """Run the three phases and the two profiles with the package under
+    ``root``; return the stats."""
     sys.path.insert(0, os.path.abspath(root))
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -47,7 +52,18 @@ def one(root):
     ps = cs.ct.make_solver(a, cs.FLAGSHIP_CFG, device="cuda")
     cs.kernel_parity(ps, cs.torch.float32, "flagship layout", stats,
                      timed=True)
-    del a, ps
+    cfg_f = cs.FLAGSHIP_CFG.replace(fuse_blas1=True)
+    ps_f = cs.ct.make_solver(a, cfg_f, device="cuda")
+    cs.fusion_parity(ps_f, cs.torch.float32, "flagship fuse_blas1 layout",
+                     stats, timed=True)
+    b = cs.np.ones(a.n)
+    for tag, solver, cfg in (("flagship", ps, cs.FLAGSHIP_CFG),
+                             ("flagship (i) fuse_blas1", ps_f, cfg_f)):
+        cut = cs.bs.PreparedSolver(a, solver.op, solver.pre,
+                                   cfg.replace(maxit=cs.PROFILE_ITERS),
+                                   solver.dt_setup)
+        cs.loop_split(f"{tag} ({root})", lambda: cut.solve(b))
+    del a, ps, ps_f
     a3 = cs.ct.grid_laplacian(cs.BENCH_SIDE, cs.BENCH_SIDE)
     ps3 = cs.ct.make_solver(a3, cs.ct.SolverConfig(maxit=20000, tol=1e-6),
                             device="cuda")
