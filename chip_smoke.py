@@ -49,12 +49,14 @@ script exits non-zero:
    (A and the factors on B3) and on the stencil layout (A on B1, the
    restrided factors on B3), each solved twice;
 9. fusion kernel parity: B5 (the BLAS1-prologue msolve, three and two
-   input streams, three scalar pairs) and B6 (B1 with dots in its epilogue,
-   with and without <y, y>) against their twins, bitwise, pad blocks zero,
-   the same over two launches, in f32 and f64, at the mat10000 layout and
-   at the flagship's fuse_blas1 layout; B6 also equal to B1; times and
-   bounds, and B2's and B5's f64 device times (reported, not gated); B1 on
-   the mono preconditioner's 37 terms against its twin;
+   input streams, three scalar pairs) and B6 (B1 with dots in its epilogue
+   and their sum in the same launch, with and without <y, y>) against their
+   twins, bitwise, pad blocks zero, the same over two launches, in f32 and
+   f64, at the mat10000 layout and at the flagship's fuse_blas1 layout; B6
+   also equal to B1; times and bounds, beside B6 the device time of the
+   unfused sequence it replaces (B1, then torch.dot for each dot), and B2's,
+   B5's and B6's f64 device times (reported, not gated); B1 on the mono
+   preconditioner's 37 terms against its twin;
 10. main path 4a, the flagship with the loop's opt-in fusions: a
    fuse_blas1 solver's solves (i) fuse_blas1 and (ii) fuse_blas1 +
    fused_dots + check_halves=False, and on path 1's solver (iii) fused_dots
@@ -62,7 +64,8 @@ script exits non-zero:
    msolve and matvec of their loops; (ii) refined to <= 1e-6; then a
    prefer_mono solve of the mat10000 grid, card against CPU, in f64 (its
    37-term B1 stencil is checked against B1's twin in phase 9); after the
-   path's launch counts are read, a profile of 30 iterations of (i) as in 4;
+   path's launch counts are read, a profile of 30 iterations of (i) and of
+   (iii) as in 4;
 11. 2-D stencil parity: B7 (StencilOperator2D) against its twin, bitwise,
    ring zero, the same over two launches, in f32 and f64, constant and
    variable coefficients, at the 3163 x 3163 grid, and its A x equal to
@@ -199,17 +202,17 @@ def cuda_ms(fn, reps=20):
 
 def device_ms(fn, reps=50):
     """Device time of one call of ``fn`` in ms: the call captured once in a
-    CUDA graph (after a warm-up on a side stream), then ``reps`` replays
-    back to back between two CUDA events.  Unlike cuda_ms it leaves out the
-    host's work between launches, which for a short kernel behind a Python
-    front end is most of cuda_ms."""
+    CUDA graph (after a warm-up on the side stream that captures it), then
+    ``reps`` replays back to back between two CUDA events.  Unlike cuda_ms
+    it leaves out the host's work between launches, which for a short
+    kernel behind a Python front end is most of cuda_ms."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -235,6 +238,15 @@ def poison_allocator(like):
     so the next torch.empty of that size is likely to get it: an output
     element a kernel fails to write then shows as NaN."""
     torch.full_like(like, float("nan"))
+
+
+def poison_dots(x, n_dots):
+    """poison_allocator for B6's y and for its partials and dots, one
+    allocation of n_dots per DOTS_BLOCK rows and the n_dots sums: a
+    partial or a dot the kernel fails to write shows as NaN."""
+    poison_allocator(x)
+    torch.full((x.numel() // _kernels.DOTS_BLOCK * n_dots + n_dots,),
+               float("nan"), dtype=x.dtype, device=x.device)
 
 
 def bound(nbytes, flops):
@@ -317,12 +329,11 @@ def kernel_parity(ps, dtype, tag, stats, timed):
             raise RuntimeError(f"{tag} {name}: kernel differs from its twin"
                                f" (max abs {err!r}; bitwise required)")
     if timed:
-        # each padded vector read once and written once, plus the masks
+        # B2: each padded vector read once and written once, plus the mask
         vec = x.numel() * x.element_size()
-        n1 = len(op.strided_terms)
         n2 = len(pre.nl.strided_terms) + len(pre.nu.strided_terms)
-        stats["const_stencil_spmv"].update(bound(
-            2 * vec + gap.numel() * gap.element_size(), 2 * n1 * op.npad))
+        stats["const_stencil_spmv"].update(spmv_bound(
+            x, gap, op.strided_terms, op.np_true, op.block))
         stats["const_series_msolve"].update(bound(
             3 * vec + gap_ext.numel() * gap_ext.element_size(),
             (2 * n2 + 2) * op.npad))
@@ -374,8 +385,10 @@ def poll_cost(ps, b, iters):
     return out
 
 
-# device kernels by name: which part of an iteration each one is
-SPLIT_PARTS = (("stencil", ("const_stencil_spmv", "stencil2d")),
+# device kernels by name: which part of an iteration each one is (the first
+# part whose words the name holds)
+SPLIT_PARTS = (("spmv_dots", ("spmv_dots",)),
+               ("stencil", ("const_stencil_spmv", "stencil2d")),
                ("msolve", ("msolve", "banded", "chunk_", "dia_spmv")),
                ("dots", ("dot", "reduce")),
                ("elementwise", ("elementwise",)))
@@ -383,7 +396,7 @@ SPLIT_PARTS = (("stencil", ("const_stencil_spmv", "stencil2d")),
 
 def loop_split(tag, run):
     """Profile ``run()`` (a solve cut to a few iterations) with
-    torch.profiler and print each iteration's device split: the stencil
+    torch.profiler and print each iteration's device split: B6, the stencil
     kernel, the msolve kernels, the dots, the elementwise passes, other
     device work, and idle (the span from the first device event to the last
     that no event covers).  The trace goes to cuda_mat_tpu_torch/build/
@@ -979,9 +992,10 @@ def fusion_parity(ps, dtype, tag, stats, timed):
           " cases", flush=True)
     name = "const_stencil_spmv_dots"
     for with_self in (True, False):
-        poison_allocator(av)
+        poison_dots(av, 1 + with_self)
         yk, dk = st.const_stencil_spmv_dots_padded(av, gap, (bv,), *spmv,
                                                    with_self=with_self)
+        poison_dots(av, 1 + with_self)
         yk2, dk2 = st.const_stencil_spmv_dots_padded(av, gap, (bv,), *spmv,
                                                      with_self=with_self)
         yp, dp = st.const_stencil_spmv_dots_padded_plain(
@@ -1034,28 +1048,50 @@ def fusion_parity(ps, dtype, tag, stats, timed):
             " and the polynomial msolve")
         t6 = kernel_times(lambda: st.const_stencil_spmv_dots_padded(
             av, gap, (bv,), *spmv, with_self=True))
-        ms = t6["ms"]
         pms = cuda_ms(lambda: st.const_stencil_spmv_dots_padded_plain(
             av, gap, (bv,), *spmv, with_self=True))
-        grid = av.numel() // _kernels.DOTS_BLOCK
-        b6 = bound(3 * vec + gap.numel() * gap.element_size()
-                   + 2 * grid * av.element_size(),
-                   (2 * len(op.strided_terms) + 4) * av.numel())
+        b6 = spmv_bound(av, gap, op.strided_terms, op.np_true, op.block,
+                        n_w=1, n_dots=2)
+
+        def unfused():
+            y = st.const_stencil_spmv_padded(av, gap, *spmv)
+            return torch.dot(bv, y), torch.dot(y, y)
+
+        u_ms = device_ms(unfused)
         stats["const_stencil_spmv_dots"].update(
-            **t6, plain_ms=pms, **b6, library_ms=None,
-            library="none: no one PyTorch call computes the SpMV with its"
-            " dots")
-        print(f"{tag} const_stencil_spmv_dots (one weight and <y, y>, the"
-              f" partials' torch.sum included): kernel {ms:.4f} ms (device"
+            **t6, plain_ms=pms, **b6, unfused_device_ms=u_ms,
+            library_ms=None, library="none: no one PyTorch call computes the"
+            " SpMV with its dots")
+        print(f"{tag} const_stencil_spmv_dots (one weight and <y, y>, their"
+              f" sum included): kernel {t6['ms']:.4f} ms (device"
               f" {t6['device_ms']:.4f}), twin {pms:.4f} ms, bound"
-              f" {b6['bound_ms']:.4f} ms"
-              f" ({b6['bound_by']})", flush=True)
+              f" {b6['bound_ms']:.4f} ms ({b6['bound_by']}); the unfused"
+              f" sequence it replaces (B1, torch.dot(w, y), torch.dot(y,"
+              f" y)): device {u_ms:.4f} ms", flush=True)
 
 
-def msolve_f64_times(ps, ps_f, stats):
-    """B2's and B5's (both forms) device times in f64 at the layouts where
-    their f32 times are taken (path 1's and the fuse_blas1 solver's), with
-    their f64 bounds: reported, not gated."""
+def spmv_bound(x, gap, terms, np_true, block, base=0, n_w=0, n_dots=0):
+    """B1's bound (``n_w``, ``n_dots`` 0) or B6's (its weights and dots),
+    from the bytes this layout needs: the rows below lim = np_true - base
+    (y is 0 from there on, and in the pad blocks) read x there and as far
+    beside as the terms reach, the weights there and gap's rows once; y is
+    written whole and the dots once.  Each of those rows takes each term's
+    product and sum (gap's product for the last sum) and each dot's
+    product and sum."""
+    npad = x.numel() - 2 * block
+    lim = min(max(np_true - base, 0), npad)
+    behind = max(0, -min(t[0] for t in terms))
+    ahead = max(0, max(t[0] for t in terms))
+    x_rows = min(lim + ahead, npad + block) + min(behind, block) if lim else 0
+    return bound((x_rows + n_w * lim + x.numel() + n_dots) * x.element_size()
+                 + min(block, lim) * gap.element_size(),
+                 (2 * len(terms) + 2 * n_dots) * lim)
+
+
+def f64_times(ps, ps_f, stats):
+    """B2's, B5's (both forms) and B6's device times in f64 at the layouts
+    where their f32 times are taken (path 1's and the fuse_blas1
+    solver's), with their f64 bounds: reported, not gated."""
     rng = np.random.default_rng(3)
     dt = torch.float64
     out = {}
@@ -1081,17 +1117,37 @@ def msolve_f64_times(ps, ps_f, stats):
                 lambda: st.const_series_msolve_fma_padded(*args)),
                 bound((6 if three else 5) * vec + ge,
                       ((4 if three else 2) + 2 * n2 + 2) * av.numel()))
+        gap = op.gapmask.to(dt)
+        spmv = (op.strided_terms, op.np_true, op.block, op.sub)
+        out["b6"] = (device_ms(lambda: st.const_stencil_spmv_dots_padded(
+            av, gap, (bv,), *spmv, with_self=True)),
+            spmv_bound(av, gap, op.strided_terms, op.np_true, op.block,
+                       n_w=1, n_dots=2))
     stats["const_series_msolve"].update(
         device_ms_f64=out["b2"][0], bound_ms_f64=out["b2"][1]["bound_ms"])
     stats["const_series_msolve_fma"].update(
         device_ms_f64=out[True][0], bound_ms_f64=out[True][1]["bound_ms"],
         device_ms_f64_two_streams=out[False][0],
         bound_ms_f64_two_streams=out[False][1]["bound_ms"])
+    stats["const_stencil_spmv_dots"].update(
+        device_ms_f64=out["b6"][0], bound_ms_f64=out["b6"][1]["bound_ms"])
     print(f"f64 device times: B2 {out['b2'][0]:.4f} ms (bound"
           f" {out['b2'][1]['bound_ms']:.4f}), B5 three streams"
           f" {out[True][0]:.4f} ({out[True][1]['bound_ms']:.4f}), two"
-          f" streams {out[False][0]:.4f} ({out[False][1]['bound_ms']:.4f})",
+          f" streams {out[False][0]:.4f} ({out[False][1]['bound_ms']:.4f}),"
+          f" B6 {out['b6'][0]:.4f} ({out['b6'][1]['bound_ms']:.4f})",
           flush=True)
+
+
+def fusion_profiles(a, ps, ps_f, b, label=""):
+    """loop_split profiles of PROFILE_ITERS iterations of path 4a's (i)
+    fuse_blas1 (on ``ps_f``'s layout) and (iii) fused_dots (on path 1's
+    solver ``ps``); ``label`` tags the lines."""
+    for tag, solver, flags in (("(i) fuse_blas1", ps_f, {"fuse_blas1": True}),
+                               ("(iii) fused_dots", ps, {"fused_dots": True})):
+        cut = bs.PreparedSolver(a, solver.op, solver.pre, FLAGSHIP_CFG.replace(
+            maxit=PROFILE_ITERS, **flags), solver.dt_setup)
+        loop_split(f"flagship {tag}{label}", lambda: cut.solve(b))
 
 
 def loop_steps(r):
@@ -1207,9 +1263,7 @@ def stencil2d_parity(ps3, a3, stats, smi):
         t = kernel_times(lambda: st.const_stencil_spmv_padded(*args))
         ms = t["ms"]
         pms = cuda_ms(lambda: st.const_stencil_spmv_padded_plain(*args))
-        b1 = bound(2 * xp.numel() * xp.element_size()
-                   + o.gapmask.numel() * o.gapmask.element_size(),
-                   2 * len(o.strided_terms) * o.npad)
+        b1 = spmv_bound(xp, o.gapmask, o.strided_terms, o.np_true, o.block)
         dt = str(dtype)[6:]
         stats["const_stencil_spmv"].update(
             {f"ms_{BENCH_SIDE}_{dt}": ms,
@@ -1487,7 +1541,7 @@ def main():
         for dt in (torch.float32, torch.float64):
             fusion_parity(ps_f, dt, "flagship fuse_blas1 layout", stats,
                           timed=dt == torch.float32)
-        msolve_f64_times(ps, ps_f, stats)
+        f64_times(ps, ps_f, stats)
         mono_parity(dev)
 
     # ---- main path 4a: the flagship with the loop's opt-in fusions
@@ -1533,12 +1587,9 @@ def main():
     check_counted("main path 4a (flagship with fusions)", path4a,
                   ("const_stencil_spmv", "const_series_msolve",
                    "const_series_msolve_fma", "const_stencil_spmv_dots"))
-    with phase(timer, "flagship fuse_blas1 profile"):
-        cut = bs.PreparedSolver(a, ps_f.op, ps_f.pre,
-                                cfg_f.replace(maxit=PROFILE_ITERS),
-                                ps_f.dt_setup)
-        loop_split("flagship (i) fuse_blas1", lambda: cut.solve(b))
-    del ps, ps_f, cases, a, cut
+    with phase(timer, "flagship fusion profiles"):
+        fusion_profiles(a, ps, ps_f, b)
+    del ps, ps_f, cases, a
 
     cfg_ilu = ct.SolverConfig(maxit=2000, tol=1e-6, dtype="float64",
                               precond="ilu0", trisolve_block=128)

@@ -29,41 +29,10 @@ namespace {
 
 constexpr int kMaxTerms = 64;
 constexpr int kBadArgs = -1;
-constexpr int kThreads = 256;
 constexpr size_t kSmemLimit = 232448;   // dynamic shared memory of a block
-
-// Stencil terms go to the kernel by value, in its parameter space;
-// __grid_constant__ lets the kernels index them there without a copy to
-// local memory.
-struct Terms {
-  int n;
-  long long off[kMaxTerms];
-  double c[kMaxTerms];
-};
-
-bool fill_terms(Terms* t, const long long* off, const double* c, int n) {
-  if (n < 1 || n > kMaxTerms) return false;
-  t->n = n;
-  for (int k = 0; k < n; ++k) {
-    t->off[k] = off[k];
-    t->c[k] = c[k];
-  }
-  return true;
-}
 
 using cmt::add_rn;
 using cmt::mul_rn;
-
-// sum_k c_k * v[i + off_k] in term order (the JAX kernels' order), every
-// product and partial sum rounded on its own.
-template <typename T>
-__device__ __forceinline__ T stencil_sum(const Terms& t, const T* v,
-                                         long long i) {
-  T acc = mul_rn(static_cast<T>(t.c[0]), v[i + t.off[0]]);
-  for (int k = 1; k < t.n; ++k)
-    acc = add_rn(acc, mul_rn(static_cast<T>(t.c[k]), v[i + t.off[k]]));
-  return acc;
-}
 
 // B1. Replaces const_stencil_spmv_padded / _const_stencil_kernel
 // (cuda_mat_tpu/ops/pallas_stencil.py:306, :262):
@@ -109,14 +78,77 @@ struct TermsT {
   T c[kMaxTerms];
 };
 
-// P = tile / kStreamThreads elements per thread, a compile-time constant so
-// that each term's P reads issue back to back.
-template <typename T, int P>
-__global__ void __launch_bounds__(kStreamThreads, 4)
-const_stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ gap,
-                          T* __restrict__ y,
-                          const __grid_constant__ TermsT<T> t, int npad,
-                          int block, int lim, int halo, int stages) {
+// B6. Replaces const_stencil_spmv_dots_padded / _const_stencil_dots_kernel
+// (pallas_stencil.py:416, :353): B1's y, and the dots <w, y> (w given) and,
+// with `with_self`, <y, y>, for the solver loop's fused_dots.  Bound by
+// device memory: x and w read once, y written once (12 bytes a row in f32).
+//   * B6 is B1's streaming kernel (spmv_body below, one body for both) with
+//     an epilogue on each computed tile.  The weight is read only at the
+//     computed tile, by 16-byte loads issued before the tile's stencil sum,
+//     into registers: a TMA copy beside x's tile would have needed a ring
+//     of w tiles in shared memory, fewer blocks an SM at the flagship.
+//   * Partials that do not depend on the machine: one per kDotRows = 256
+//     rows of y (DOTS_BLOCK), the products of those rows summed by a fixed
+//     halving tree (row r += row r + h, h = 128, ..., 1), the pad blocks'
+//     partials 0.  One warp takes a 256-row chunk of the staged y tile:
+//     lane l reads its chunk's 16-byte words l + 32 j (j < 8 / vec), stores
+//     them to y and forms their products, so the tree's levels 128 .. 32 vec
+//     are in its registers, 16 vec .. vec are shuffles, and the rest inside
+//     a word.  No block barrier and no shared memory beyond B1's.  Whether
+//     <y, y> is taken is a template flag (Self), so a launch without it
+//     forms no y·y products and holds no second tree in registers.
+//   * The cross-block sum in the same launch: each block takes a ticket
+//     (atomicAdd on a counter that stays 0 between launches, one for each
+//     stream that launches B6, so that no two running launches share it;
+//     the partials are the launch's own memory) after its
+//     partials are written and fenced; the last block sums the partials in
+//     a fixed order (thread t: rows t, t + 256, ... one after another, then
+//     the 256-thread halving tree), writes the dots and resets the counter.
+// Every product and sum is rounded on its own, so y, the partials and the
+// dots equal the plain twin (ops/stencil.py) bit for bit.
+constexpr int kDotRows = 256;
+
+template <typename T>
+struct DotsArgs {
+  const T* w;        // the weight vector, or null
+  T* partials;       // nd partials per kDotRows rows of y, row after row
+  T* dots;           // the nd sums
+  unsigned* ticket;  // blocks done with their partials; 0 between launches
+  int with_self;     // <y, y> too (after <w, y> where w is given): the
+                     // kernel's Self
+};
+
+// The halving tree of one 256-row chunk, held by one warp: lane l holds the
+// rows of the chunk's 16-byte words l + 32 j (s[j][q]: row 4 (l + 32 j) + q
+// in f32).  Returns the chunk's sum on lane 0; every lane must call it.
+template <typename T, int J, int Vn>
+__device__ __forceinline__ T chunk_tree(T (&s)[J][Vn]) {
+#pragma unroll
+  for (int h = J / 2; h >= 1; h /= 2)   // rows 128 .. 32 Vn apart
+#pragma unroll
+    for (int j = 0; j < h; ++j)
+#pragma unroll
+      for (int q = 0; q < Vn; ++q) s[j][q] = add_rn(s[j][q], s[j + h][q]);
+#pragma unroll
+  for (int h = 16; h >= 1; h /= 2)      // rows 16 Vn .. Vn apart
+#pragma unroll
+    for (int q = 0; q < Vn; ++q)
+      s[0][q] = add_rn(s[0][q], __shfl_down_sync(0xffffffffu, s[0][q], h));
+#pragma unroll
+  for (int h = Vn / 2; h >= 1; h /= 2)  // rows Vn / 2 .. 1 apart
+#pragma unroll
+    for (int q = 0; q < h; ++q) s[0][q] = add_rn(s[0][q], s[0][q + h]);
+  return s[0][0];
+}
+
+// B1's body, and with Dots B6's (with Self, <y, y> among its dots): P =
+// tile / kStreamThreads elements per thread, a compile-time constant so that
+// each term's P reads issue back to back.  `da` is B6's (null for B1).
+template <typename T, int P, bool Dots, bool Self = false>
+__device__ __forceinline__ void spmv_body(
+    const T* __restrict__ x, const T* __restrict__ gap, T* __restrict__ y,
+    const TermsT<T>& t, int npad, int block, int lim, int halo, int stages,
+    const DotsArgs<T>* da) {
   using V = typename cmt::Vec16<T>::type;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kTile = P * kStreamThreads;
@@ -169,6 +201,20 @@ const_stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ gap,
   for (int v = blockIdx.x * kStreamThreads + tid; v < 2 * pv;
        v += gridDim.x * kStreamThreads)
     yv[v < pv ? v : v + npad / kVec] = cmt::zero16<T>();
+  // B6: a chunk's words, the words a lane holds of it, the dots; the pad
+  // blocks' partials are 0 (y is 0 there)
+  constexpr int kChunkWords = kDotRows / kVec;
+  constexpr int kJ = kChunkWords / 32;
+  const int warp = tid / 32, lane = tid % 32;
+  int nd = 0;
+  if constexpr (Dots) {
+    nd = (da->w != nullptr) + Self;
+    const int pc = block / kDotRows;
+    for (int c = blockIdx.x * kStreamThreads + tid; c < 2 * pc;
+         c += gridDim.x * kStreamThreads)
+      for (int d = 0; d < nd; ++d)
+        da->partials[(c < pc ? c : c + npad / kDotRows) * nd + d] = T(0);
+  }
   __syncthreads();   // the barriers and the terms are ready
 
   const int ring_len = stages * kTile;
@@ -183,6 +229,16 @@ const_stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ gap,
 #pragma unroll
     for (int u = 0; u < P; ++u)
       g[u] = __ldg(gap + m0 + tid + u * kStreamThreads);
+    // B6: the weight's words of this warp's chunk (chunk `warp` of the tile)
+    V wk[kJ];
+    if constexpr (Dots) {
+      if (warp < P && da->w != nullptr) {
+        const V* wt = reinterpret_cast<const V*>(da->w + start) +
+                      warp * kChunkWords + lane;
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) wk[j] = __ldg(wt + 32 * j);
+      }
+    }
     for (; ready <= k + 2 * halo; ++ready)
       cmt::mbar_wait(bars + (anchor + dir * ready) % stages,
                      (ready / stages) & 1);
@@ -229,10 +285,125 @@ const_stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ gap,
     if (tid == 0 && k + stages < nst) issue(k + stages);
     const V* ov = reinterpret_cast<const V*>(out);
     V* dst = reinterpret_cast<V*>(y + start);
+    if constexpr (!Dots) {
 #pragma unroll
-    for (int u = 0; u < kTile / kVec / kStreamThreads; ++u)
-      dst[tid + u * kStreamThreads] = ov[tid + u * kStreamThreads];
+      for (int u = 0; u < kTile / kVec / kStreamThreads; ++u)
+        dst[tid + u * kStreamThreads] = ov[tid + u * kStreamThreads];
+    } else if (warp < P) {
+      // chunk `warp` of the tile: its words to y, its products, its
+      // partials (the tree in chunk_tree)
+      const int w0 = warp * kChunkWords + lane;
+      T s[2][kJ][kVec];
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const V yw = ov[w0 + 32 * j];
+        dst[w0 + 32 * j] = yw;
+        const T* ye = reinterpret_cast<const T*>(&yw);
+        const T* we = reinterpret_cast<const T*>(&wk[j]);
+#pragma unroll
+        for (int q = 0; q < kVec; ++q) {
+          if constexpr (Self) {   // <w, y> first where w is given
+            const T yy = mul_rn(ye[q], ye[q]);
+            s[0][j][q] = da->w != nullptr ? mul_rn(we[q], ye[q]) : yy;
+            s[1][j][q] = yy;
+          } else {                // the launcher requires w
+            s[0][j][q] = mul_rn(we[q], ye[q]);
+          }
+        }
+      }
+      T* row = da->partials + (start / kDotRows + warp) * nd;
+      const T p0 = chunk_tree<T, kJ, kVec>(s[0]);
+      if (lane == 0) row[0] = p0;
+      if (Self && nd > 1) {
+        const T p1 = chunk_tree<T, kJ, kVec>(s[1]);
+        if (lane == 0) row[1] = p1;
+      }
+    }
   }
+  if constexpr (Dots) {
+    // each block's partials written and visible before it takes a ticket;
+    // the last block sums them all
+    __shared__ unsigned s_last;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(da->ticket, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    // thread tid: rows tid, tid + 256, ... in order, kB rows in flight
+    const int rows = (npad + 2 * block) / kDotRows;
+    const T* pt = da->partials;
+    T acc[2] = {T(0), T(0)};
+    if (tid < rows)
+#pragma unroll
+      for (int d = 0; d < 2; ++d)
+        if (d < nd) acc[d] = __ldcg(pt + tid * nd + d);
+    constexpr int kB = 64 / sizeof(T);
+    int r = tid + kStreamThreads;
+    for (; r + (kB - 1) * kStreamThreads < rows; r += kB * kStreamThreads) {
+      T v[kB][2];
+#pragma unroll
+      for (int i = 0; i < kB; ++i)
+#pragma unroll
+        for (int d = 0; d < 2; ++d)
+          if (d < nd) v[i][d] = __ldcg(pt + (r + i * kStreamThreads) * nd + d);
+#pragma unroll
+      for (int i = 0; i < kB; ++i)
+#pragma unroll
+        for (int d = 0; d < 2; ++d)
+          if (d < nd) acc[d] = add_rn(acc[d], v[i][d]);
+    }
+    for (; r < rows; r += kStreamThreads)
+#pragma unroll
+      for (int d = 0; d < 2; ++d)
+        if (d < nd) acc[d] = add_rn(acc[d], __ldcg(pt + r * nd + d));
+    // the 256 sums by the halving tree (h = 128, 64, 32 through shared
+    // memory, the ring's first rows: every load of it has completed)
+    T* red = ring;
+#pragma unroll
+    for (int d = 0; d < 2; ++d)
+      if (d < nd) red[d * kStreamThreads + tid] = acc[d];
+    __syncthreads();
+    for (int h = kStreamThreads / 2; h >= 32; h /= 2) {
+      if (tid < h)
+        for (int d = 0; d < nd; ++d) {
+          T* e = red + d * kStreamThreads + tid;
+          *e = add_rn(*e, e[h]);
+        }
+      __syncthreads();
+    }
+    if (warp == 0) {
+      for (int d = 0; d < nd; ++d) {
+        T v = red[d * kStreamThreads + lane];
+#pragma unroll
+        for (int h = 16; h >= 1; h /= 2)
+          v = add_rn(v, __shfl_down_sync(0xffffffffu, v, h));
+        if (lane == 0) da->dots[d] = v;
+      }
+      if (lane == 0) *da->ticket = 0;
+    }
+  }
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kStreamThreads, 4)
+const_stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ gap,
+                          T* __restrict__ y,
+                          const __grid_constant__ TermsT<T> t, int npad,
+                          int block, int lim, int halo, int stages) {
+  spmv_body<T, P, false>(x, gap, y, t, npad, block, lim, halo, stages,
+                         nullptr);
+}
+
+template <typename T, int P, bool Self>
+__global__ void __launch_bounds__(kStreamThreads, 4)
+const_stencil_spmv_dots_kernel(const T* __restrict__ x,
+                               const T* __restrict__ gap, T* __restrict__ y,
+                               const __grid_constant__ TermsT<T> t, int npad,
+                               int block, int lim, int halo, int stages,
+                               const __grid_constant__ DotsArgs<T> da) {
+  spmv_body<T, P, true, Self>(x, gap, y, t, npad, block, lim, halo, stages,
+                              &da);
 }
 
 // B2 and B5, one kernel.  B2 replaces const_series_msolve_padded /
@@ -693,48 +864,6 @@ const_series_msolve_kernel(const __grid_constant__ MsolveArgs<T> k) {
   }
 }
 
-// B6. Replaces const_stencil_spmv_dots_padded / _const_stencil_dots_kernel
-// (pallas_stencil.py:416, :353): B1's y, plus per-thread-block partials of
-// <w, y> (w given) and, with `with_self`, <y, y>, written to a
-// (grid, n_dots) array that the wrapper sums over blocks.  One thread per
-// output element as in B1; each block of kThreads threads reduces its
-// products by a fixed halving tree in shared memory (h = kThreads/2, ..., 1),
-// so the partials are the same from run to run and no atomics are needed.
-// Bound by device memory: x and the weights read once, y written once.
-constexpr int kMaxDots = 2;
-
-template <typename T>
-__global__ void const_stencil_spmv_dots_kernel(
-    const T* __restrict__ x, const T* __restrict__ gap,
-    const T* __restrict__ w, T* __restrict__ y, T* __restrict__ partials,
-    const __grid_constant__ Terms terms, long long npad, long long block,
-    long long np_true, long long base, int with_self) {
-  __shared__ __align__(8) unsigned char raw[kMaxDots * kThreads * sizeof(T)];
-  T* s = reinterpret_cast<T*>(raw);
-  const int tid = threadIdx.x;
-  const long long j = static_cast<long long>(blockIdx.x) * kThreads + tid;
-  const long long q = j - block;
-  T out = T(0);
-  if (q >= 0 && q < npad && base + q < np_true)
-    out = mul_rn(stencil_sum(terms, x, j), gap[q % block]);
-  y[j] = out;
-  const int n_w = w != nullptr;
-  const int n_dots = n_w + with_self;
-  if (n_w) s[tid] = mul_rn(w[j], out);
-  if (with_self) s[n_w * kThreads + tid] = mul_rn(out, out);
-  __syncthreads();
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
-    if (tid < h)
-      for (int d = 0; d < n_dots; ++d)
-        s[d * kThreads + tid] = add_rn(s[d * kThreads + tid],
-                                       s[d * kThreads + tid + h]);
-    __syncthreads();
-  }
-  if (tid < n_dots)
-    partials[static_cast<long long>(blockIdx.x) * n_dots + tid] =
-        s[tid * kThreads];
-}
-
 // Raise the block's dynamic shared-memory limit to `bytes` once per kernel
 // (also below 48 KB: the default limit counts the static shared memory).
 template <class Kernel>
@@ -747,47 +876,90 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
   return err;
 }
 
+// B6 with Self as `da` has it.
+template <typename T, int P, bool Self>
+cudaError_t launch_dots_p(const T* x, const T* gap, T* y, const TermsT<T>& t,
+                          int npad, int block, int lim, int halo, int stages,
+                          int ctas, size_t smem, const DotsArgs<T>& da,
+                          cudaStream_t stream) {
+  static size_t allowed = 0;
+  cudaError_t err =
+      allow_smem(const_stencil_spmv_dots_kernel<T, P, Self>, smem, &allowed);
+  if (err != cudaSuccess) return err;
+  const_stencil_spmv_dots_kernel<T, P, Self>
+      <<<ctas, kStreamThreads, smem, stream>>>(x, gap, y, t, npad, block, lim,
+                                               halo, stages, da);
+  return cudaSuccess;
+}
+
+// B1, or B6 where `da` is given.
 template <typename T, int P>
 int launch_spmv_p(const void* x, const void* gap, void* y,
                   const TermsT<T>& t, int npad, int block, int lim, int halo,
-                  int stages, int ctas, cudaStream_t stream) {
+                  int stages, int ctas, const DotsArgs<T>* da,
+                  cudaStream_t stream) {
   static size_t allowed = 0;
   constexpr int kTile = P * kStreamThreads;
   const size_t smem = sizeof(T) * static_cast<size_t>(stages + 2) * kTile +
                       sizeof(std::uint64_t) * stages;
-  cudaError_t err =
-      allow_smem(const_stencil_spmv_kernel<T, P>, smem, &allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const_stencil_spmv_kernel<T, P><<<ctas, kStreamThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gap),
-      static_cast<T*>(y), t, npad, block, lim, halo, stages);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(gap);
+  T* yt = static_cast<T*>(y);
+  cudaError_t err;
+  if (da == nullptr) {
+    err = allow_smem(const_stencil_spmv_kernel<T, P>, smem, &allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const_stencil_spmv_kernel<T, P><<<ctas, kStreamThreads, smem, stream>>>(
+        xt, gt, yt, t, npad, block, lim, halo, stages);
+  } else {
+    err = da->with_self
+              ? launch_dots_p<T, P, true>(xt, gt, yt, t, npad, block, lim,
+                                          halo, stages, ctas, smem, *da,
+                                          stream)
+              : launch_dots_p<T, P, false>(xt, gt, yt, t, npad, block, lim,
+                                           halo, stages, ctas, smem, *da,
+                                           stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+// B1 and B6: checks every argument the kernel relies on.
 template <typename T>
 int launch_spmv(const void* x, const void* gap, void* y, const TermsT<T>& t,
                 int npad, int block, int lim, int log_tile, int halo,
-                int stages, int ctas, cudaStream_t stream) {
+                int stages, int ctas, const DotsArgs<T>* da,
+                cudaStream_t stream) {
   if (log_tile < 9 || log_tile > 11 || stages > 256) return kBadArgs;
   const int tile = 1 << log_tile;
   if (tile * static_cast<int>(sizeof(T)) < 16 * kStreamThreads ||
-      block % tile != 0 || npad % tile != 0 || halo < 0 ||
-      2 * halo + 2 > stages ||
+      block <= 0 || block % tile != 0 || npad < 0 || npad % tile != 0 ||
+      static_cast<long long>(npad) + 2LL * block >= (1LL << 31) ||
+      lim < 0 || lim > npad || halo < 0 || 2 * halo + 2 > stages ||
       static_cast<long long>(halo) * tile > block || ctas < 1 ||
-      ctas > npad / tile)
+      ctas > npad / tile || !aligned16(x) || !aligned16(y))
+    return kBadArgs;
+  if (da != nullptr &&
+      (da->partials == nullptr || da->dots == nullptr ||
+       da->ticket == nullptr || !aligned16(da->w) ||
+       (da->w == nullptr && !da->with_self)))
     return kBadArgs;
   for (int k = 0; k < t.n; ++k)
     if (t.off[k] > block || t.off[k] < -block) return kBadArgs;
   switch (log_tile) {
     case 9:
       return launch_spmv_p<T, 2>(x, gap, y, t, npad, block, lim, halo,
-                                 stages, ctas, stream);
+                                 stages, ctas, da, stream);
     case 10:
       return launch_spmv_p<T, 4>(x, gap, y, t, npad, block, lim, halo,
-                                 stages, ctas, stream);
+                                 stages, ctas, da, stream);
     default:
       return launch_spmv_p<T, 8>(x, gap, y, t, npad, block, lim, halo,
-                                 stages, ctas, stream);
+                                 stages, ctas, da, stream);
   }
 }
 
@@ -921,38 +1093,26 @@ int launch_msolve(int nin, const void* a, const void* b, const void* c,
   }
 }
 
+// B1 (w, partials, dots and ticket null) or B6: the terms as the kernels
+// take them, then launch_spmv.
 template <typename T>
-int launch_spmv_dots(const void* x, const void* gap, const void* w, void* y,
-                     void* partials, const Terms& t, long long npad,
-                     long long block, long long np_true, long long base,
-                     int with_self, cudaStream_t stream) {
-  const long long total = npad + 2 * block;
-  if (total % kThreads != 0 || (w == nullptr && !with_self)) return kBadArgs;
-  const_stencil_spmv_dots_kernel<T><<<static_cast<unsigned>(total / kThreads),
-                                      kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gap),
-      static_cast<const T*>(w), static_cast<T*>(y),
-      static_cast<T*>(partials), t, npad, block, np_true, base,
-      with_self != 0);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int spmv_entry(const void* x, const void* gap, void* y, const int* off,
-               const void* c, int nterms, int npad, int block, int lim,
-               int log_tile, int halo, int stages, int ctas,
-               cudaStream_t s) {
-  if (nterms < 1 || nterms > kMaxTerms || block <= 0 || lim < 0 ||
-      lim > npad)
-    return kBadArgs;
+int spmv_entry(const void* x, const void* gap, const void* w, void* y,
+               void* partials, void* dots, void* ticket, int with_self,
+               const int* off, const void* c, int nterms, int npad,
+               int block, int lim, int log_tile, int halo, int stages,
+               int ctas, cudaStream_t s) {
+  if (nterms < 1 || nterms > kMaxTerms) return kBadArgs;
   TermsT<T> t;
   t.n = nterms;
   for (int k = 0; k < nterms; ++k) {
     t.off[k] = off[k];
     t.c[k] = static_cast<const T*>(c)[k];
   }
+  DotsArgs<T> da{static_cast<const T*>(w), static_cast<T*>(partials),
+                 static_cast<T*>(dots), static_cast<unsigned*>(ticket),
+                 with_self != 0};
   return launch_spmv<T>(x, gap, y, t, npad, block, lim, log_tile, halo,
-                        stages, ctas, s);
+                        stages, ctas, dots != nullptr ? &da : nullptr, s);
 }
 
 }  // namespace
@@ -968,11 +1128,13 @@ int cmt_const_stencil_spmv(int dtype, const void* x, const void* gap, void* y,
                            int halo, int stages, int ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return spmv_entry<float>(x, gap, y, off, c, nterms, npad, block, lim,
-                             log_tile, halo, stages, ctas, s);
+    return spmv_entry<float>(x, gap, nullptr, y, nullptr, nullptr, nullptr,
+                             0, off, c, nterms, npad, block, lim, log_tile,
+                             halo, stages, ctas, s);
   if (dtype == 1)
-    return spmv_entry<double>(x, gap, y, off, c, nterms, npad, block, lim,
-                              log_tile, halo, stages, ctas, s);
+    return spmv_entry<double>(x, gap, nullptr, y, nullptr, nullptr, nullptr,
+                              0, off, c, nterms, npad, block, lim, log_tile,
+                              halo, stages, ctas, s);
   return kBadArgs;
 }
 
@@ -998,22 +1160,27 @@ int cmt_const_series_msolve(int dtype, const void* x, const void* inv_d,
   return kBadArgs;
 }
 
-// w may be null (no weight); partials is (grid, (w != null) + with_self).
+// B6, as B1, and: w may be null (no weight); partials holds
+// (npad + 2 block) / 256 rows of (w != null) + with_self elements, dots
+// that many; ticket is a uint32 that is 0 (and is 0 again at the end),
+// used by no other launch while this one runs.
 int cmt_const_stencil_spmv_dots(int dtype, const void* x, const void* gap,
                                 const void* w, void* y, void* partials,
-                                const long long* off, const double* c,
-                                int nterms, long long npad, long long block,
-                                long long np_true, long long base,
-                                int with_self, void* stream) {
-  Terms t;
-  if (!fill_terms(&t, off, c, nterms) || block <= 0) return kBadArgs;
+                                void* dots, void* ticket, int with_self,
+                                const int* off, const void* c, int nterms,
+                                int npad, int block, int lim, int log_tile,
+                                int halo, int stages, int ctas,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dots == nullptr) return kBadArgs;
   if (dtype == 0)
-    return launch_spmv_dots<float>(x, gap, w, y, partials, t, npad, block,
-                                   np_true, base, with_self, s);
+    return spmv_entry<float>(x, gap, w, y, partials, dots, ticket, with_self,
+                             off, c, nterms, npad, block, lim, log_tile, halo,
+                             stages, ctas, s);
   if (dtype == 1)
-    return launch_spmv_dots<double>(x, gap, w, y, partials, t, npad, block,
-                                    np_true, base, with_self, s);
+    return spmv_entry<double>(x, gap, w, y, partials, dots, ticket,
+                              with_self, off, c, nterms, npad, block, lim,
+                              log_tile, halo, stages, ctas, s);
   return kBadArgs;
 }
 

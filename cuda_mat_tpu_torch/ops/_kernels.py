@@ -36,9 +36,9 @@ MAX_DIAGS = 128               # kMaxDiags of kernel B3's by-value offsets
 SMEM_LIMIT = 232448           # dynamic shared memory one block may use on H100
 SMEM_PER_SM = 233472          # shared memory of one SM (228 KB) ...
 SMEM_RESERVED = 1024          # ... less 1 KB for each resident block
-STATIC_SMEM = 2048            # B1's, B2's, B5's and B7's static shared
-                              # memory (terms)
-DOTS_BLOCK = 256              # kThreads: the rows each B6 partial sums
+STATIC_SMEM = 2048            # B1's, B2's, B5's, B6's and B7's static
+                              # shared memory (terms)
+DOTS_BLOCK = 256              # kDotRows: the rows each B6 partial sums
 STREAM_THREADS = 256          # threads of a B1 or B7 block
 STREAM_BLOCKS_PER_SM = 4      # their __launch_bounds__ minimum
 STAGE_BYTES = 8192            # one B1 ring stage: a tile of x
@@ -93,8 +93,8 @@ def library() -> ctypes.CDLL:
                                    _I, _I, _I, _I, _P],
         "cmt_const_series_msolve": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                                     _I, _I, _I, _I, _P, _P],
-        "cmt_const_stencil_spmv_dots": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                        _LL, _LL, _LL, _LL, _I, _P],
+        "cmt_const_stencil_spmv_dots": [_I] + [_P] * 7 + [_I, _P, _P]
+                                       + [_I] * 8 + [_P],
         "cmt_const_series_msolve_fma": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _P, _I, _P, _P, _I, _I, _I,
                                         _I, _P, _P]},
@@ -123,12 +123,6 @@ def dia_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=64)
-def _term_arrays(terms) -> Tuple[np.ndarray, np.ndarray]:
-    return (np.asarray([t[0] for t in terms], np.int64),
-            np.asarray([t[1] for t in terms], np.float64))
-
-
-@functools.lru_cache(maxsize=64)
 def _offset_array(offsets) -> np.ndarray:
     return np.asarray(offsets, np.int32)
 
@@ -153,7 +147,7 @@ def _ahead(stage_bytes: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SpmvPlan:
-    """Launch geometry of kernel B1 (``csrc/const_stencil.cu``)."""
+    """Launch geometry of kernels B1 and B6 (``csrc/const_stencil.cu``)."""
 
     tile: int      # elements of a ring stage: a power of two dividing
                    # block, 4 to 8 KB of x
@@ -167,16 +161,20 @@ class SpmvPlan:
 @functools.lru_cache(maxsize=64)
 def spmv_plan(npad: int, block: int, reach: int, itemsize: int,
               sms: int) -> SpmvPlan:
-    """B1's geometry for a layout of ``npad`` strided rows in blocks of
-    ``block``, terms reaching ``reach`` = max|off'| elements.  A tile is
-    STAGE_BYTES of x (halved until it divides ``block``); the ring holds the
-    tiles within ``reach`` of the computed one and _ahead more.  Where that
-    ring would not fit shared memory, its halo shrinks and the farther terms
-    read device memory.  As many blocks as fit run on each SM, up to
-    STREAM_BLOCKS_PER_SM."""
+    """B1's and B6's geometry for a layout of ``npad`` strided rows in
+    blocks of ``block``, terms reaching ``reach`` = max|off'| elements.  A
+    tile is STAGE_BYTES of x (halved until it divides ``block``); the ring
+    holds the tiles within ``reach`` of the computed one and _ahead more.
+    Where that ring would not fit shared memory, its halo shrinks and the
+    farther terms read device memory.  As many blocks as fit run on each SM,
+    up to STREAM_BLOCKS_PER_SM.  B6's epilogue adds no shared memory: its
+    partial trees run in registers and warp shuffles (one warp a
+    DOTS_BLOCK-row chunk of the staged y tile, at most 8 chunks a tile), and
+    its last block sums the partials through the ring's first
+    2·DOTS_BLOCK elements, after every load of the ring has landed."""
     least = 16 * STREAM_THREADS // itemsize   # a 16-byte word per thread
     if block % least or npad % block or npad <= 0:
-        raise ValueError(f"kernel B1 takes blocks that are multiples of"
+        raise ValueError(f"kernels B1 and B6 take blocks that are multiples of"
                          f" {least} (block {block}, npad {npad})")
     tile = STAGE_BYTES // itemsize
     while block % tile:
@@ -501,24 +499,32 @@ def _typed_terms(terms, dtype: torch.dtype) -> Tuple[np.ndarray, np.ndarray]:
                        np.float32 if dtype == torch.float32 else np.float64))
 
 
-def const_stencil_spmv(x_pad: torch.Tensor, gapmask: torch.Tensor, terms,
-                       np_true: int, block: int, base: int) -> torch.Tensor:
-    """Launch kernel B1 on ``x_pad``'s device and current stream."""
+def _spmv_launch_args(name: str, x_pad: torch.Tensor, gapmask: torch.Tensor,
+                      ws, terms, block: int):
+    """The checks and geometry B1 and B6 share (the weights ``ws`` are
+    B6's): the library, npad, :func:`spmv_plan` and the term arrays."""
     if x_pad.shape[0] >= 2 ** 31:
         raise ValueError(f"padded length {x_pad.shape[0]} needs 64-bit"
-                         " indices; kernel B1 takes 32-bit ones")
-    lib = library()
-    _check_cuda(x_pad, gapmask)
+                         f" indices; kernel {name} takes 32-bit ones")
     if len(terms) > MAX_TERMS:
         raise ValueError(f"{len(terms)} stencil terms > {MAX_TERMS}")
-    if x_pad.data_ptr() % 16:
-        raise ValueError("kernel B1 streams x by 16-byte copies: x_pad must"
-                         " be 16-byte aligned")
+    lib = library()
+    _check_cuda(x_pad, gapmask, *ws)
+    if any(t.data_ptr() % 16 for t in (x_pad, *ws)):
+        raise ValueError(f"kernel {name} streams its vectors by 16-byte"
+                         " copies and loads: each must be 16-byte aligned")
     npad = x_pad.shape[0] - 2 * block
     plan = spmv_plan(npad, block, max(abs(t[0]) for t in terms),
                      x_pad.element_size(), _sm_count(x_pad.device))
+    return lib, npad, plan, _typed_terms(tuple(terms), x_pad.dtype)
+
+
+def const_stencil_spmv(x_pad: torch.Tensor, gapmask: torch.Tensor, terms,
+                       np_true: int, block: int, base: int) -> torch.Tensor:
+    """Launch kernel B1 on ``x_pad``'s device and current stream."""
+    lib, npad, plan, (off, c) = _spmv_launch_args("B1", x_pad, gapmask, (),
+                                                  terms, block)
     y = torch.empty_like(x_pad)
-    off, c = _typed_terms(tuple(terms), x_pad.dtype)
     with torch.cuda.device(x_pad.device):
         rc = lib.cmt_const_stencil_spmv(
             _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(), gapmask.data_ptr(),
@@ -580,35 +586,61 @@ def const_series_msolve(x_pad: torch.Tensor, inv_d_pad: torch.Tensor,
     return y
 
 
+# B6's tickets, one per device and stream: an int32 counter (read as a
+# uint32 by the kernel; 0 between launches, as the kernel's last block
+# resets it)
+_dots_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _dots_ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """B6's ticket for launches on ``stream`` (a CUDA stream handle) of
+    ``device``: zeroed at the first launch there, which must not be inside
+    a CUDA-graph capture (the capture's memory would not outlive its
+    graph).  Launches on one stream run one after another, so they share
+    it; a captured graph keeps its capture stream's ticket, so it is not
+    replayed while B6 runs on that stream or in another replay of it."""
+    ticket = _dots_tickets.get((device, stream))
+    if ticket is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("kernel B6's ticket must be made before a"
+                               " CUDA graph captures the kernel: launch it"
+                               " once on the capturing stream first")
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        _dots_tickets[device, stream] = ticket
+    return ticket
+
+
 def const_stencil_spmv_dots(x_pad: torch.Tensor, gapmask: torch.Tensor, ws,
                             terms, np_true: int, block: int, base: int,
                             with_self: bool):
-    """Launch kernel B6 on ``x_pad``'s device and current stream.  Returns
-    ``(y, partials)``, partials of shape (len(x_pad) / DOTS_BLOCK, n_dots):
-    one row per thread block, columns ``<w, y>`` for the one weight in
-    ``ws`` (if any), then ``<y, y>`` with ``with_self``."""
-    lib = library()
-    _check_cuda(x_pad, gapmask, *ws)
+    """Launch kernel B6 on ``x_pad``'s device and current stream: one
+    launch, the dots' cross-block sum included.  Returns ``(y, dots)``,
+    dots ``<w, y>`` for the one weight in ``ws`` (if any), then ``<y, y>``
+    with ``with_self``.  The partials (n_dots a DOTS_BLOCK rows) and the
+    dots are one allocation of the stream, made per call."""
     n_dots = len(ws) + int(with_self)
-    if len(terms) > MAX_TERMS or len(ws) > 1 or n_dots < 1:
-        raise ValueError(f"kernel B6 takes up to {MAX_TERMS} terms, one"
-                         " weight vector and at least one dot")
-    if x_pad.shape[0] % DOTS_BLOCK:
-        raise ValueError(f"padded length {x_pad.shape[0]} is not a multiple"
-                         f" of {DOTS_BLOCK}")
+    if len(ws) > 1 or n_dots < 1:
+        raise ValueError("kernel B6 takes one weight vector at most and at"
+                         " least one dot")
+    lib, npad, plan, (off, c) = _spmv_launch_args("B6", x_pad, gapmask, ws,
+                                                  terms, block)
+    stream = torch.cuda.current_stream(x_pad.device).cuda_stream
+    ticket = _dots_ticket(x_pad.device, stream)
     y = torch.empty_like(x_pad)
-    partials = torch.empty((x_pad.shape[0] // DOTS_BLOCK, n_dots),
-                           dtype=x_pad.dtype, device=x_pad.device)
-    off, c = _term_arrays(tuple(terms))
+    n_parts = x_pad.shape[0] // DOTS_BLOCK * n_dots
+    parts = torch.empty(n_parts + n_dots, dtype=x_pad.dtype,
+                        device=x_pad.device)
+    dots = parts[n_parts:]
     with torch.cuda.device(x_pad.device):
         rc = lib.cmt_const_stencil_spmv_dots(
             _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(), gapmask.data_ptr(),
-            ws[0].data_ptr() if ws else None, y.data_ptr(),
-            partials.data_ptr(), off.ctypes.data, c.ctypes.data, len(terms),
-            x_pad.shape[0] - 2 * block, block, np_true, base, int(with_self),
-            torch.cuda.current_stream().cuda_stream)
+            ws[0].data_ptr() if ws else None, y.data_ptr(), parts.data_ptr(),
+            dots.data_ptr(), ticket.data_ptr(), int(with_self),
+            off.ctypes.data, c.ctypes.data, len(terms), npad, block,
+            min(max(np_true - base, 0), npad), plan.tile.bit_length() - 1,
+            plan.halo, plan.stages, plan.ctas, stream)
     _raise_on(lib, rc, "const_stencil_spmv_dots")
-    return y, partials
+    return y, dots
 
 
 def const_series_msolve_fma(a_pad: torch.Tensor, c1: torch.Tensor,

@@ -10,7 +10,8 @@ half), in three parts:
   :func:`const_series_msolve_padded` (kernel B2),
   :func:`const_series_msolve_fma_padded` (kernel B5, B2 behind the loop's
   BLAS1 update) and :func:`const_stencil_spmv_dots_padded` (kernel B6, B1
-  with dot products in its epilogue), each beside its plain PyTorch twin
+  with dot products in its epilogue and their sum in the same launch), each
+  beside its plain PyTorch twin
   (``*_plain``).  A front end sends a CPU tensor to the twin and
   a CUDA tensor to the hand-written kernel (:mod:`._kernels`), or raises; it
   never falls back.  Each keeps a plain-int ``launches`` count of kernel
@@ -484,18 +485,15 @@ def const_series_msolve_padded(x_pad: torch.Tensor, inv_d_pad: torch.Tensor,
 const_series_msolve_padded.launches = 0
 
 
-def const_stencil_spmv_dots_padded_plain(x_pad: torch.Tensor,
-                                         gapmask: torch.Tensor, ws, terms,
-                                         np_true: int, block: int, sub: int,
-                                         with_self: bool = False,
-                                         base: int = 0):
-    """Plain PyTorch twin of kernel B6: B1's twin for y, then each product
-    ``w·y`` (and ``y·y``) cut into rows of ``DOTS_BLOCK`` and summed within
-    each row by the kernel's halving tree, ``v[:, :h] + v[:, h:]``; the row
-    partials are summed by the front end's own ``torch.sum``."""
-    y = const_stencil_spmv_padded_plain(x_pad, gapmask, terms, np_true,
-                                        block, sub, base)
-    prods = [w * y for w in ws] + ([y * y] if with_self else [])
+def spmv_dots_partials_plain(y_pad: torch.Tensor, ws, with_self: bool,
+                             block: int) -> torch.Tensor:
+    """Kernel B6's partials of ``<w, y>`` (each weight in ``ws``) and, with
+    ``with_self``, ``<y, y>``, as a (len / DOTS_BLOCK, n_dots) array: each
+    product cut into rows of DOTS_BLOCK and summed within each row by the
+    halving tree ``v[:, :h] + v[:, h:]`` (h = DOTS_BLOCK / 2, ..., 1); the
+    pad blocks' rows 0, as y is there.  They depend on nothing but the
+    vectors: not on the card or on the kernel's launch geometry."""
+    prods = [w * y_pad for w in ws] + ([y_pad * y_pad] if with_self else [])
     parts = []
     for v in prods:
         v = v.view(-1, _kernels.DOTS_BLOCK)
@@ -503,7 +501,42 @@ def const_stencil_spmv_dots_padded_plain(x_pad: torch.Tensor,
             h = v.shape[1] // 2
             v = v[:, :h] + v[:, h:]
         parts.append(v)
-    return y, torch.sum(torch.cat(parts, dim=1), dim=0)
+    p = torch.cat(parts, dim=1)
+    pad = block // _kernels.DOTS_BLOCK
+    p[:pad] = 0
+    p[p.shape[0] - pad:] = 0
+    return p
+
+
+def dots_sum_plain(partials: torch.Tensor) -> torch.Tensor:
+    """Kernel B6's sum of its partials, column by column, in the kernel's
+    order: sum t of DOTS_BLOCK takes rows t, t + DOTS_BLOCK, ... one after
+    another (0 where there is none), then the DOTS_BLOCK sums go through
+    the halving tree."""
+    b = _kernels.DOTS_BLOCK
+    g = partials.shape[0]
+    acc = partials.new_zeros((b, partials.shape[1]))
+    acc[:min(g, b)] = partials[:b]
+    for r in range(b, g, b):
+        k = min(b, g - r)
+        acc[:k] = acc[:k] + partials[r:r + k]
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    return acc[0]
+
+
+def const_stencil_spmv_dots_padded_plain(x_pad: torch.Tensor,
+                                         gapmask: torch.Tensor, ws, terms,
+                                         np_true: int, block: int, sub: int,
+                                         with_self: bool = False,
+                                         base: int = 0):
+    """Plain PyTorch twin of kernel B6: B1's twin for y, then
+    :func:`spmv_dots_partials_plain` summed by :func:`dots_sum_plain`."""
+    y = const_stencil_spmv_padded_plain(x_pad, gapmask, terms, np_true,
+                                        block, sub, base)
+    return y, dots_sum_plain(spmv_dots_partials_plain(y, ws, with_self,
+                                                      block))
 
 
 def const_stencil_spmv_dots_padded(x_pad: torch.Tensor, gapmask: torch.Tensor,
@@ -514,11 +547,11 @@ def const_stencil_spmv_dots_padded(x_pad: torch.Tensor, gapmask: torch.Tensor,
     :func:`const_stencil_spmv_padded`) and ``dots = (<w, y>, [<y, y>])``
     for the one weight vector in ``ws`` (or none), the second when
     ``with_self`` (counterpart of ``cuda_mat_tpu.ops.pallas_stencil.
-    const_stencil_spmv_dots_padded``, whose loop passes one weight: the
-    dots are taken in the kernel's epilogue as per-block partials and
-    summed over blocks here).  Pads and gaps of y and of padded weights are
-    zero, so the partials are the true-coordinate dots.  CPU tensors run
-    the plain twin, CUDA tensors kernel B6."""
+    const_stencil_spmv_dots_padded``, whose loop passes one weight): the
+    dots are taken in the kernel's epilogue as partials of 256 rows and
+    summed in the same launch.  Pads and gaps of y and of padded weights
+    are zero, so the partials are the true-coordinate dots.  CPU tensors
+    run the plain twin, CUDA tensors kernel B6."""
     _check_layout(x_pad, block, sub, terms)
     ws = tuple(ws)
     if len(ws) > 1 or not (ws or with_self):
@@ -530,10 +563,10 @@ def const_stencil_spmv_dots_padded(x_pad: torch.Tensor, gapmask: torch.Tensor,
     if x_pad.device.type == "cpu":
         return const_stencil_spmv_dots_padded_plain(
             x_pad, gapmask, ws, terms, np_true, block, sub, with_self, base)
-    y, partials = _kernels.const_stencil_spmv_dots(
-        x_pad, gapmask, ws, terms, np_true, block, base, with_self)
+    out = _kernels.const_stencil_spmv_dots(x_pad, gapmask, ws, terms, np_true,
+                                           block, base, with_self)
     const_stencil_spmv_dots_padded.launches += 1
-    return y, torch.sum(partials, dim=0)
+    return out
 
 
 const_stencil_spmv_dots_padded.launches = 0

@@ -10,8 +10,9 @@ B5's p agrees to 5e-15 and its y to 1e-12 (the JAX package's own bands for
 this kernel, test_neumann.py), not bit for bit.  B6's y is B1's, and B1 on
 the Laplacian is exact in both (its coefficients make every product exact),
 so y is compared bitwise; the dots are summed in another order (the
-kernel's 256-row halving tree and one torch.sum, against XLA's lane
-partials), so to 1e-12 relative.  Whole f64 solves part at the last bits
+kernel's: a halving tree over each 256 rows, then thread t of 256 adds
+the partials t, t + 256, ... in turn and a 256-way halving tree adds the
+threads' sums, against XLA's lane partials), so to 1e-12 relative.  Whole f64 solves part at the last bits
 between the packages' dot orders (test_torch_solver.py): ±2 iterations and
 x within 1e-7, on the right-hand side of seed 2.  That window is a property
 of the input: on grid_laplacian(40, 126) (k=3, MILU 0.96, tol 1e-8) the

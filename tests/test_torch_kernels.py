@@ -5,7 +5,8 @@ other tensor goes to the kernel or raises: a failed build is never hidden
 by a fallback.  The ``gpu`` tests compare each CUDA kernel with its twin
 and skip without a card: the stencil kernels B1/B2/B5/B6, the 2-D stencil
 B7 and the banded DIA SpMV B3 bit for bit (they round every product and
-sum on its own, as the twins do; B6's dots are the twin's tree), the
+sum on its own, as the twins do; B6's dots are the twin's partials and
+their sum in the twin's order), the
 banded trisolve kernels B4a/B4b to 1e-12 (f64) and 1e-5 (f32) of max|twin|
 (they sum in another order than the twin's torch.matmul), both against the
 sequential twin and against the chunked plain version of their algorithm,
@@ -731,6 +732,109 @@ def test_spmv_kernel_layouts_on_card(dtype):
     assert tst.const_stencil_spmv_padded.launches == 2 * len(cases)
 
 
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmv_dots_kernel_layouts_on_card(dtype):
+    """B6 bitwise equal to its twin (y and the dots) at each layout and
+    term set of _b1_cases (a tail and a shard's base, mono's 37 terms, the
+    fuse_blas1 layout, terms past the ring that read device memory), with
+    and without <y, y>, with and without a weight (random in the pad
+    blocks too): outputs poisoned first (y, and the one allocation of the
+    partials and the dots), the same bits over two launches, y equal to
+    B1's, the pad blocks zero."""
+    tst.reset_launch_counts()
+    cases = _b1_cases(dtype, "cuda")
+    rng = np.random.default_rng(9)
+    for name, x, args in cases:
+        gap, terms, np_true, block, sub, base = args
+        w = torch.from_numpy(rng.standard_normal(x.shape[0])).to(dtype).to(
+            "cuda")
+        y1 = tst.const_stencil_spmv_padded(x, *args)
+        for ws, with_self in (((w,), True), ((w,), False), ((), True)):
+            outs = []
+            for _ in range(2):
+                _poison_b6(x, len(ws) + with_self)
+                outs.append(tst.const_stencil_spmv_dots_padded(
+                    x, gap, ws, terms, np_true, block, sub, with_self, base))
+            yp, dp = tst.const_stencil_spmv_dots_padded_plain(
+                x, gap, ws, terms, np_true, block, sub, with_self, base)
+            torch.cuda.synchronize()
+            (y, d), (y2, d2) = outs
+            what = f"{name}, {len(ws)} weight(s), with_self {with_self}"
+            assert d.shape == (len(ws) + with_self,), what
+            assert torch.equal(y, yp) and torch.equal(d, dp), what
+            assert torch.equal(y, y2) and torch.equal(d, d2), what
+            assert torch.equal(y, y1), what
+            assert torch.count_nonzero(y[:block]) == 0, what
+            assert torch.count_nonzero(y[y.shape[0] - block:]) == 0, what
+    assert tst.const_stencil_spmv_dots_padded.launches == 6 * len(cases)
+    assert tst.const_stencil_spmv_padded.launches == len(cases)
+
+
+def _poison_b6(x, n_dots):
+    """Leave NaN blocks of the sizes of B6's y and of its partials and dots
+    (one allocation, n_dots per DOTS_BLOCK rows and the n_dots sums) in the
+    caching allocator, so that the launch's torch.empty likely gets them:
+    an element, partial or dot the kernel fails to write shows as NaN."""
+    torch.full_like(x, float("nan"))
+    torch.full((x.shape[0] // _kernels.DOTS_BLOCK * n_dots + n_dots,),
+               float("nan"), dtype=x.dtype, device=x.device)
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+def test_spmv_dots_kernel_on_two_streams_and_in_a_graph():
+    """B6 on two streams at once, each with its own ticket, gives the
+    twin's bits on both; captured in a CUDA graph (after a launch on the
+    capturing stream), its replays give them too."""
+    tst.reset_launch_counts()
+    name, x, args = _b1_cases(torch.float32, "cuda")[0]
+    gap, terms, np_true, block, sub, base = args
+    rng = np.random.default_rng(10)
+    ws = tuple(torch.from_numpy(rng.standard_normal(x.shape[0])).to(
+        torch.float32).to("cuda") for _ in range(2))
+    want = [tst.const_stencil_spmv_dots_padded_plain(
+        x, gap, (w,), terms, np_true, block, sub, True, base) for w in ws]
+    streams = [torch.cuda.Stream() for _ in ws]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(10):
+        for i, (st, w) in enumerate(zip(streams, ws)):
+            with torch.cuda.stream(st):
+                _poison_b6(x, 2)
+                outs[i].append(tst.const_stencil_spmv_dots_padded(
+                    x, gap, (w,), terms, np_true, block, sub, True, base))
+    torch.cuda.synchronize()
+    tickets = [_kernels._dots_tickets[x.device, st.cuda_stream]
+               for st in streams]
+    assert tickets[0].data_ptr() != tickets[1].data_ptr()
+    assert all(t.tolist() == [0] for t in tickets)
+    for i, (yp, dp) in enumerate(want):
+        for y, d in outs[i]:
+            assert torch.equal(y, yp) and torch.equal(d, dp), (name, i)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tst.const_stencil_spmv_dots_padded(x, gap, (ws[0],), terms, np_true,
+                                           block, sub, True, base)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y, d = tst.const_stencil_spmv_dots_padded(
+            x, gap, (ws[0],), terms, np_true, block, sub, True, base)
+    for _ in range(3):
+        y.fill_(float("nan"))
+        d.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want[0][0]) and torch.equal(d, want[0][1])
+    assert tst.const_stencil_spmv_dots_padded.launches == 22
+
+
 def _b7_cases(dtype, device):
     """(name, coeffs, x_pad, offsets, tr, tc, rp, cp, r, c) for B7."""
     rng = np.random.default_rng(4)
@@ -788,7 +892,7 @@ def test_stencil2d_kernel_layouts_on_card(dtype):
     assert t2d.stencil_spmv_padded.launches == 2 * len(cases)
 
 
-@pytest.mark.parametrize("kernel", ["B1", "B7"])
+@pytest.mark.parametrize("kernel", ["B1", "B6", "B7"])
 def test_stencil_cases_run_the_twins_on_cpu(kernel):
     """The card cases above on CPU tensors: the front ends take them (the
     layouts and terms pass their checks) and run the twins, counting no
@@ -799,6 +903,18 @@ def test_stencil_cases_run_the_twins_on_cpu(kernel):
             assert torch.equal(tst.const_stencil_spmv_padded(x, *args),
                                tst.const_stencil_spmv_padded_plain(x, *args))
         assert tst.const_stencil_spmv_padded.launches == 0
+    elif kernel == "B6":
+        tst.reset_launch_counts()
+        for name, x, (gap, *lay, base) in _b1_cases(torch.float64, "cpu"):
+            for ws, with_self in (((x,), True), ((), True)):
+                y, d = tst.const_stencil_spmv_dots_padded(
+                    x, gap, ws, *lay, with_self, base)
+                yp, dp = tst.const_stencil_spmv_dots_padded_plain(
+                    x, gap, ws, *lay, with_self, base)
+                assert torch.equal(y, yp) and torch.equal(d, dp), name
+                assert torch.equal(y, tst.const_stencil_spmv_padded_plain(
+                    x, gap, *lay, base)), name
+        assert tst.const_stencil_spmv_dots_padded.launches == 0
     else:
         t2d.reset_launch_counts()
         for name, *args in _b7_cases(torch.float64, "cpu"):

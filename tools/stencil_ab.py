@@ -8,17 +8,19 @@ timers.
 Each ROOT (a directory holding ``cuda_mat_tpu_torch/``; ``.`` for this
 checkout) runs in a process of its own, in the order given, so that two
 versions are compared on one card as old, new, new, old.  The process
-imports ROOT's package and this checkout's ``chip_smoke.py`` and runs three
+imports ROOT's package and this checkout's ``chip_smoke.py`` and runs four
 of its phases: B1 and B2 against their twins at the flagship layout in f32
-(``kernel_parity``), B5 (three and two input streams) and B6 at the
-flagship's fuse_blas1 layout in f32 (``fusion_parity``), and the 3163 x
-3163 grid (``stencil2d_parity``: B1 and B7, constant and variable
-coefficients, in f32 and f64).  They print each kernel's time from launch
-to launch (``ms``) and on the device (``device_ms``) beside its bound, and
-fail where a kernel differs from its twin.  Then it profiles 30 iterations
-of the flagship loop and of its fuse_blas1 loop (path 4a (i)) with
-``chip_smoke.loop_split``.  The last line is a JSON list of {root, stats}:
-chip_smoke's stats of the five kernels.
+(``kernel_parity``), B5 (three and two input streams) and B6 (one launch,
+its dots' cross-block sum included) at the flagship's fuse_blas1 layout in
+f32 with B6's unfused yardstick (``fusion_parity``), the f64 device
+times of B2, B5 and B6 at those layouts (``f64_times``), and the 3163 x 3163
+grid (``stencil2d_parity``: B1 and B7, constant and variable coefficients,
+in f32 and f64).  They print each kernel's time from launch to launch
+(``ms``) and on the device (``device_ms``) beside its bound, and fail where
+a kernel differs from its twin.  Then it profiles 30 iterations of the
+flagship loop and of path 4a's (i) fuse_blas1 and (iii) fused_dots loops
+with ``chip_smoke.loop_split``.  The last line is a JSON list of {root,
+stats}: chip_smoke's stats of the five kernels.
 """
 
 import importlib.util
@@ -33,7 +35,7 @@ NAMES = ("const_stencil_spmv", "const_series_msolve", "const_series_msolve_fma",
 
 
 def one(root):
-    """Run the three phases and the two profiles with the package under
+    """Run the four phases and the three profiles with the package under
     ``root``; return the stats."""
     sys.path.insert(0, os.path.abspath(root))
     spec = importlib.util.spec_from_file_location(
@@ -56,14 +58,14 @@ def one(root):
     ps_f = cs.ct.make_solver(a, cfg_f, device="cuda")
     cs.fusion_parity(ps_f, cs.torch.float32, "flagship fuse_blas1 layout",
                      stats, timed=True)
+    cs.f64_times(ps, ps_f, stats)
     b = cs.np.ones(a.n)
-    for tag, solver, cfg in (("flagship", ps, cs.FLAGSHIP_CFG),
-                             ("flagship (i) fuse_blas1", ps_f, cfg_f)):
-        cut = cs.bs.PreparedSolver(a, solver.op, solver.pre,
-                                   cfg.replace(maxit=cs.PROFILE_ITERS),
-                                   solver.dt_setup)
-        cs.loop_split(f"{tag} ({root})", lambda: cut.solve(b))
-    del a, ps, ps_f
+    cut = cs.bs.PreparedSolver(
+        a, ps.op, ps.pre, cs.FLAGSHIP_CFG.replace(maxit=cs.PROFILE_ITERS),
+        ps.dt_setup)
+    cs.loop_split(f"flagship ({root})", lambda: cut.solve(b))
+    cs.fusion_profiles(a, ps, ps_f, b, f" ({root})")
+    del a, ps, ps_f, cut
     a3 = cs.ct.grid_laplacian(cs.BENCH_SIDE, cs.BENCH_SIDE)
     ps3 = cs.ct.make_solver(a3, cs.ct.SolverConfig(maxit=20000, tol=1e-6),
                             device="cuda")
