@@ -1,9 +1,10 @@
 """CSR (compressed sparse row) — the canonical host compute format.
 
 Host-only numpy copy of :mod:`cuda_mat_tpu.formats.csr`, trimmed to what the
-port's solve path uses: construction from COO with the reference's pattern
-checks (reference mmio_wrapper.h:91-130), row lengths, the host SpMV oracle
-and the DIA conversion.
+port's solve path uses: construction from COO or a dense array with the
+reference's pattern checks (reference mmio_wrapper.h:91-130), row lengths,
+the host SpMV oracle, the COO/dense/ELL/DIA/BSR conversions and the
+transpose BiCG needs.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from cuda_mat_tpu_torch.formats.coo import COOMatrix
 
 
 def verify_pattern(n: int, nnz: int, indptr: np.ndarray, indices: np.ndarray,
@@ -74,6 +77,14 @@ class CSRMatrix:
         out.verify()
         return out
 
+    @classmethod
+    def from_dense(cls, a: np.ndarray, eps: float = 0.0) -> "CSRMatrix":
+        a = np.asarray(a)
+        mask = np.abs(a) > eps
+        rows, cols = np.nonzero(mask)
+        return cls.from_coo(COOMatrix(a.shape[0], a.shape[1], rows, cols,
+                                      a[mask]))
+
     @property
     def nnz(self) -> int:
         return int(self.data.shape[0])
@@ -104,3 +115,33 @@ class CSRMatrix:
         from cuda_mat_tpu_torch.formats.dia import DIAMatrix
 
         return DIAMatrix.from_csr(self, max_diags=max_diags)
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros((self.n, self.m), dtype=self.data.dtype)
+        rows = np.repeat(np.arange(self.n), self.row_lengths)
+        out[rows, self.indices] = self.data
+        return out
+
+    def to_coo(self):
+        rows = np.repeat(np.arange(self.n, dtype=np.int32), self.row_lengths)
+        return COOMatrix(self.n, self.m, rows, self.indices.copy(),
+                         self.data.copy())
+
+    def to_ell(self, pad_col: Optional[int] = None):
+        from cuda_mat_tpu_torch.formats.ell import ELLMatrix
+
+        return ELLMatrix.from_csr(self, pad_col=pad_col)
+
+    def to_bsr(self, block: int = 2):
+        from cuda_mat_tpu_torch.formats.bsr import BSRMatrix
+
+        return BSRMatrix.from_csr(self, block)
+
+    def transpose(self) -> "CSRMatrix":
+        """CSR transpose (a stable sort by column, as the JAX package's),
+        the numpy equivalent of the OMP reference's ``Transpose2``
+        (reference bicstab_omp/bicstab.cpp:35-66, whose int-truncation of
+        values is not reproduced)."""
+        coo = self.to_coo()
+        return CSRMatrix.from_coo(
+            COOMatrix(self.m, self.n, coo.cols, coo.rows, coo.data))

@@ -1,5 +1,9 @@
-"""Laplacian workload generators and the split form (host numpy copy of
-:mod:`cuda_mat_tpu.models.problems`, trimmed to the solve path's matrices).
+"""Workload generators and the split form (host numpy copy of
+:mod:`cuda_mat_tpu.models.problems`, trimmed to the solve path's matrices):
+the reference's random sparse matrix and vector and the CLI's random
+system, made by the same numpy calls in the same order as the JAX package's,
+so one seed gives both packages the same arrays bit for bit; and the
+Laplacians.
 
 ``grid_laplacian(100000, 100)`` is the 10M-row flagship;
 ``banded_laplacian(100)`` reproduces the symmetrized mat10000 fixture and
@@ -10,11 +14,56 @@ bench's 10M-row SpMV matrix.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 from cuda_mat_tpu_torch.formats.coo import COOMatrix
 from cuda_mat_tpu_torch.formats.csr import CSRMatrix
 from cuda_mat_tpu_torch.formats.dia import DIAMatrix
+
+
+def gen_rand_csr_matrix(n: int, m: int, probability_of_zero: float,
+                        vmin: float, vmax: float, eps: float = 1e-2,
+                        seed: int = 0) -> CSRMatrix:
+    """Random sparse matrix: each entry is zero with probability p, else
+    uniform in [vmin, vmax] re-drawn until |v| >= eps (reference
+    pbicgstab.h:33-55, vectorized)."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((n, m)) > probability_of_zero
+    rows, cols = np.nonzero(keep)
+    vals = rng.uniform(vmin, vmax, size=rows.shape[0])
+    small = np.abs(vals) < eps
+    while small.any():
+        vals[small] = rng.uniform(vmin, vmax, size=int(small.sum()))
+        small = np.abs(vals) < eps
+    return CSRMatrix.from_coo(COOMatrix(n, m, rows, cols, vals))
+
+
+def gen_rand_vector(n: int, probability_of_zero: float, vmin: float,
+                    vmax: float, seed: int = 0) -> np.ndarray:
+    """Random dense vector, each entry zero with probability p (reference
+    pbicgstab.cu:1093-1097)."""
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(vmin, vmax, size=n)
+    v[rng.random(n) <= probability_of_zero] = 0.0
+    return v
+
+
+def random_diag_nonzero_system(n: int, prob_of_zero: float = 0.99,
+                               seed: int = 0) -> Tuple[CSRMatrix, np.ndarray]:
+    """The CLI's default random system: off-diagonal entries nonzero with
+    probability 1 − p, in [1, 10]; the diagonal always nonzero in [1, 10]
+    (reference example.cpp:274-286); b random in [1, 5] with P(zero) = 0.2
+    (reference example.cpp:174,339)."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((n, n)) >= prob_of_zero
+    np.fill_diagonal(keep, True)
+    rows, cols = np.nonzero(keep)
+    vals = rng.uniform(1.0, 10.0, size=rows.shape[0])
+    a = CSRMatrix.from_coo(COOMatrix(n, n, rows, cols, vals))
+    b = gen_rand_vector(n, 0.2, 1.0, 5.0, seed=seed + 1)
+    return a, b
 
 
 def split_form(csr: CSRMatrix):

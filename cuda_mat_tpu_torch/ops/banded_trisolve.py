@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from cuda_mat_tpu_torch.formats.reorder import bandwidth
 from cuda_mat_tpu_torch.ops import _kernels
 
 MAX_BLOCK = 1024   # columns of a block: kernels B4a/B4b give each a thread
@@ -271,13 +272,6 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 # The solver
 # ---------------------------------------------------------------------------
-
-
-def bandwidth(csr) -> int:
-    """max |col − row| over the stored entries of ``csr``."""
-    offs = csr.indices.astype(np.int64) - np.repeat(
-        np.arange(csr.n, dtype=np.int64), csr.row_lengths)
-    return int(np.abs(offs).max(initial=0))
 
 
 @dataclasses.dataclass(frozen=True)

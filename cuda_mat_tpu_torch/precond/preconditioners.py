@@ -1,10 +1,12 @@
 """Preconditioners with an ``msolve`` method (counterpart of
 :mod:`cuda_mat_tpu.precond.preconditioners`): the identity, Jacobi, exact
-ILU(0) through the banded triangular solver (kernels B4a/B4b), the adapter
+ILU(0) through the banded triangular solver (kernels B4a/B4b) where the
+band fits one block and the generic blocked solver elsewhere, the adapter
 that runs a true-n preconditioner on padded vectors, and the Neumann-series
-ILU(0) on a padded operator's layout — constant factors on the gap-strided
-stencil layout (kernels B1/B2/B5), or the exact factors as banded DIA operators
-(kernel B3), restrided into the stencil layout where A is a stencil.
+ILU(0) — on a padded operator's layout, constant factors on the gap-strided
+stencil layout (kernels B1/B2/B5) or the exact factors as banded DIA operators
+(kernel B3), restrided into the stencil layout where A is a stencil; or on
+true-n vectors, the exact factors as unpadded operators (``make_operator``).
 
 For the Neumann series, with ``L = I + N_l`` (unit lower) and
 ``U = D(I + N_u)``, ``N_u = D⁻¹ · strict_upper``:
@@ -26,15 +28,18 @@ import torch
 
 from cuda_mat_tpu_torch.formats.coo import COOMatrix
 from cuda_mat_tpu_torch.formats.csr import CSRMatrix
+from cuda_mat_tpu_torch.formats.reorder import bandwidth
 from cuda_mat_tpu_torch.native import loader as _native
 from cuda_mat_tpu_torch.ops import _kernels
-from cuda_mat_tpu_torch.ops.banded_trisolve import BandedTriSolver, bandwidth
+from cuda_mat_tpu_torch.ops.banded_trisolve import BandedTriSolver
 from cuda_mat_tpu_torch.ops.dia_spmv import PallasDIAOperator
+from cuda_mat_tpu_torch.ops.operators import make_operator
 from cuda_mat_tpu_torch.ops.stencil import (
     ConstStencilOperator, compose_stencil_terms, const_factor_terms,
     const_series_msolve_fma_padded, const_series_msolve_padded,
     extend_gapmask, fma_combine, msolve_halo, neumann_poly_terms,
     restride_dia, strided_offsets)
+from cuda_mat_tpu_torch.ops.trisolve import BlockTriangularSolver
 from cuda_mat_tpu_torch.reference.cpu_solvers import ilu0_factorize
 
 
@@ -68,13 +73,15 @@ class JacobiPreconditioner:
 
 @dataclasses.dataclass(frozen=True)
 class ILU0Preconditioner:
-    """ILU(0): zero-fill incomplete factors on A's pattern, applied by the
-    banded triangular solver (:class:`~cuda_mat_tpu_torch.ops.
-    banded_trisolve.BandedTriSolver`) on true-n vectors.  Factorization
-    happens once at setup on the host, as the reference times it apart
-    (pbicgstab.cu:356-363); the native factorizer is used when it builds."""
+    """ILU(0): zero-fill incomplete factors on A's pattern, applied on
+    true-n vectors by the banded triangular solver (:class:`~cuda_mat_tpu_
+    torch.ops.banded_trisolve.BandedTriSolver`) or the generic blocked one
+    (:class:`~cuda_mat_tpu_torch.ops.trisolve.BlockTriangularSolver`).
+    Factorization happens once at setup on the host, as the reference
+    times it apart (pbicgstab.cu:356-363); the native factorizer is used
+    when it builds."""
 
-    tri: BandedTriSolver
+    tri: object  # BandedTriSolver | BlockTriangularSolver
 
     @classmethod
     def from_csr(cls, csr, block: int = 256, dtype=torch.float64, *, device,
@@ -85,9 +92,11 @@ class ILU0Preconditioner:
         modified-ILU(0) factor values (0 = reference-parity ILU(0)).
 
         The JAX package picks its engine by backend: the Pallas banded
-        kernel on a TPU when the band fits the block, else a generic XLA
-        blocked solver.  Here the banded solver runs on every device, and a
-        band wider than ``block`` is not ported yet."""
+        kernel on a TPU when the band fits the block, else the generic
+        blocked solver.  Here the band decides on every device: the banded
+        engine (kernels B4a/B4b) when the bandwidth is at most ``block``,
+        else :class:`~cuda_mat_tpu_torch.ops.trisolve.BlockTriangularSolver`
+        (stock torch ops, as the JAX package's XLA loop)."""
         # the block inverses are O(n·B) floats: refuse what would eat
         # gigabytes at setup (the JAX package's guard and message)
         nb = -(-csr.n // block)
@@ -98,16 +107,11 @@ class ILU0Preconditioner:
                 f" GiB of block inverses (n={csr.n}, block={block}); use"
                 f" precond='jacobi', solve_refined, or the distributed"
                 f" bjacobi_ilu0 for systems this large")
-        bw = bandwidth(csr)
-        if bw > block:
-            raise NotImplementedError(
-                f"ILU(0) with bandwidth {bw} >"
-                f" trisolve_block {block} needs the generic blocked"
-                " triangular solver, not ported to cuda_mat_tpu_torch yet"
-                " (ROADMAP A2, BlockTriangularSolver)")
-        return cls(BandedTriSolver.from_factor(
-            csr, _factorize(csr, milu_omega), block=block, dtype=dtype,
-            device=device))
+        engine = BandedTriSolver if bandwidth(csr) <= block \
+            else BlockTriangularSolver
+        return cls(engine.from_factor(csr, _factorize(csr, milu_omega),
+                                      block=block, dtype=dtype,
+                                      device=device))
 
     def msolve(self, f: torch.Tensor) -> torch.Tensor:
         return self.tri.msolve(f)
@@ -147,7 +151,9 @@ class NeumannILUPreconditioner:
       factor operators N_l/N_u.
 
     The first mode whose layout constraints hold is taken; the others are
-    the fallbacks the JAX package itself takes."""
+    the fallbacks the JAX package itself takes.  Without a padded layout
+    the sequential mode runs on true-n vectors, ``nl``/``nu`` unpadded
+    operators of the exact factors."""
 
     nl: object             # N_l operator, P_l when fused, all of M⁻¹ (mono)
     nu: object             # N_u operator, or P_u when fused; None (mono)
@@ -160,7 +166,8 @@ class NeumannILUPreconditioner:
     @classmethod
     def from_csr(cls, csr, terms: int = 3, pad_like=None,
                  const_factors: bool = True, prefer_mono: bool = False,
-                 milu_omega: float = 0.0) -> "NeumannILUPreconditioner":
+                 milu_omega: float = 0.0, dtype=torch.float32,
+                 device="cuda") -> "NeumannILUPreconditioner":
         """``pad_like``: A's padded operator — the factors are built in its
         layout, dtype and device.  On a
         :class:`~cuda_mat_tpu_torch.ops.stencil.ConstStencilOperator` with
@@ -171,13 +178,18 @@ class NeumannILUPreconditioner:
         operators (B3), restrided into the stencil layout where
         ``pad_like`` is one, applied in the sequential mode.  ``milu_omega``: relaxed MILU(0)
         factor values (0 = reference-parity ILU(0)).  Raises ValueError when
-        the factors do not fit ``pad_like``'s layout."""
-        if pad_like is None:
-            raise NotImplementedError(
-                "Neumann-series ILU(0) on true-n vectors needs the unpadded"
-                " factor operators, not ported to cuda_mat_tpu_torch yet"
-                " (ROADMAP A2)")
+        the factors do not fit ``pad_like``'s layout.
+
+        Without ``pad_like`` the factors become unpadded operators of
+        ``dtype`` on ``device`` in :func:`~cuda_mat_tpu_torch.ops.operators.
+        make_operator`'s format, applied in the sequential mode to true-n
+        vectors (the JAX package's path off the padded layout)."""
         low, up, diag = neumann_factors(csr, milu_omega)
+        if pad_like is None:
+            return cls(make_operator(low, dtype=dtype, device=device),
+                       make_operator(up, dtype=dtype, device=device),
+                       torch.as_tensor(1.0 / diag).to(dtype=dtype,
+                                                      device=device), terms)
         stencil = isinstance(pad_like, ConstStencilOperator)
         if stencil and const_factors:
             return cls._const_factors(low, up, diag, terms, pad_like,
@@ -411,5 +423,6 @@ def make_preconditioner(kind: str, csr, block: int = 256, dtype=torch.float64,
                                            milu_omega=milu_omega)
     if kind == "ilu0_neumann":
         return NeumannILUPreconditioner.from_csr(csr, terms=terms,
-                                                 milu_omega=milu_omega)
+                                                 milu_omega=milu_omega,
+                                                 dtype=dtype, device=device)
     raise ValueError(f"unknown preconditioner {kind!r}")

@@ -1,15 +1,18 @@
-"""BiCGSTAB over padded vectors, in PyTorch (counterpart of
-:mod:`cuda_mat_tpu.solvers.bicgstab`, its padded-operator paths).
+"""BiCGSTAB in PyTorch (counterpart of :mod:`cuda_mat_tpu.solvers.bicgstab`).
 
 Three entry points mirror the reference's (pbicgstab.h:113-120):
 :func:`bicgstab` (the h-form loop, no preconditioner),
 :func:`bicgstab_split` (``A = A0 + diag(d)``) and
 :func:`bicgstab_lu_precond` (ILU(0)), plus :func:`solve` /
 :func:`make_solver`, which pick the preconditioner from ``SolverConfig``
-(none, jacobi, ilu0, ilu0_neumann).  The operator is the gap-strided
-stencil (kernel B1) for a proven constant-coefficient grid stencil, else
-the banded DIA operator (kernel B3); a padded device operator such as
-``StencilOperator2D`` (kernel B7) may stand in place of the matrix.
+(none, jacobi, ilu0, ilu0_neumann) and apply its RCM reordering.  Any
+square matrix solves: a proven constant-coefficient grid stencil runs on
+the gap-strided stencil (kernel B1) and any other banded matrix on the
+banded DIA operator (kernel B3), both over padded vectors; the rest, and
+any ``format="csr"|"ell"|"dia"|"bell"|"dense"``, on the unpadded
+operators of ``make_operator`` over true-n vectors.  A device operator —
+padded, such as ``StencilOperator2D`` (kernel B7), or unpadded — may stand
+in place of the matrix.  Only ``debug=True`` is not ported (ROADMAP A10).
 
 Both loops keep the JAX package's update order exactly — the preconditioned
 one its flat, select-based body, the first-half convergence exit that does
@@ -30,8 +33,13 @@ import torch
 
 from cuda_mat_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from cuda_mat_tpu_torch.formats.csr import CSRMatrix
+from cuda_mat_tpu_torch.formats.reorder import (permute_csr, permute_vector,
+                                                rcm_permutation,
+                                                unpermute_vector)
 from cuda_mat_tpu_torch.ops.dia_spmv import PallasDIAOperator
-from cuda_mat_tpu_torch.ops.operators import SplitOperator
+from cuda_mat_tpu_torch.ops.operators import (DIA_MAX_DIAGS, SplitOperator,
+                                              is_banded, is_padded,
+                                              make_operator)
 from cuda_mat_tpu_torch.ops.stencil import (ConstStencilOperator,
                                             detect_const_stencil,
                                             plan_const_neumann_layout)
@@ -268,39 +276,39 @@ def precond_core(matvec, msolve, dot, x0, b, tol: float, maxit: int,
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to cuda_mat_tpu_torch"
-                               f" yet (ROADMAP {item})")
-
-
 _HFORM = (None, "none", "identity")        # no preconditioner: h-form loop
 _PADDED_FORMATS = ("pallas_dia", "stencil")
-_UNPADDED_FORMATS = ("csr", "ell", "dia", "bell", "dense")
 
 
 def _dtype_of(config: SolverConfig) -> torch.dtype:
     if config.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {config.dtype!r}")
     if config.debug:
-        raise _not_ported("debug", "A10")
+        raise NotImplementedError("debug is not ported to cuda_mat_tpu_torch"
+                                  " yet (ROADMAP A10)")
     return _DTYPES[config.dtype]
 
 
 def _is_device_operator(a) -> bool:
-    """A padded device operator (such as
-    :class:`~cuda_mat_tpu_torch.ops.stencil2d.StencilOperator2D`) passed in
-    place of a matrix."""
+    """A device operator passed in place of a matrix: a padded one (such as
+    :class:`~cuda_mat_tpu_torch.ops.stencil2d.StencilOperator2D`) or an
+    unpadded one of :mod:`~cuda_mat_tpu_torch.ops.operators`, whose
+    ``pad_vec``/``unpad_vec`` are the identity."""
     return not isinstance(a, CSRMatrix) and all(
         hasattr(a, k) for k in ("pad_vec", "unpad_vec", "matvec"))
 
 
 def _as_op(a, dtype: torch.dtype, device, format: Optional[str] = None):
-    """The padded operator of ``a`` (the JAX ``_as_op``'s TPU branch, taken
-    on every device): a proven constant-coefficient grid stencil runs
+    """The operator of ``a``.  First the JAX ``_as_op``'s TPU branch, taken
+    on every device: a proven constant-coefficient grid stencil runs
     matrix-free (kernel B1) unless ``format="pallas_dia"``; any other
-    banded matrix — at most 16 diagonals, nnz ≥ 0.4·ndiag·n, or any band
-    under a forced ``format`` — as banded DIA (kernel B3).  The unpadded
-    operators that take the rest are not ported yet.
+    banded matrix — by :func:`~cuda_mat_tpu_torch.ops.operators.is_banded`,
+    or any band of at most 16 diagonals under ``format="stencil"|
+    "pallas_dia"`` — as banded DIA (kernel B3).
+    Everything else falls through to
+    :func:`~cuda_mat_tpu_torch.ops.operators.make_operator`, as in the JAX
+    package: the unpadded operators, by its rule or by ``format="csr"|
+    "ell"|"dia"|"bell"|"dense"``.
 
     A device operator is taken as it is, in its own dtype and on its own
     device (``format`` is not read, as in the JAX package); a ``device``
@@ -318,36 +326,26 @@ def _as_op(a, dtype: torch.dtype, device, format: Optional[str] = None):
     if a.n != a.m:
         raise ValueError(
             f"square matrix is expected, got {a.n}x{a.m}")  # cf. example.cpp:257-260
-    if format in _UNPADDED_FORMATS:
-        raise _not_ported(f"format={format!r}", "A2 / A8 (make_operator)")
     if format not in (None,) + _PADDED_FORMATS:
-        raise ValueError(f"unknown operator format {format!r}")
-    try:
-        dia = a.to_dia(max_diags=16)
-    except ValueError:
-        if format is not None:
-            raise
-        dia = None
-    if dia is not None and (a.nnz >= 0.4 * dia.ndiag * a.n
-                            or format is not None):
-        if format != "pallas_dia":
-            # detection is an exact proof, so the matrix-free operator is
-            # always safe
-            if detect_const_stencil(dia) is not None:
-                try:
-                    return ConstStencilOperator.from_dia(dia, dtype=dtype,
-                                                         device=device)
-                except ValueError:
-                    # no stencil layout within its budget; DIA still applies
-                    if format == "stencil":
-                        raise
-            elif format == "stencil":
-                raise ValueError("matrix is not a constant-coefficient grid"
-                                 " stencil; drop format='stencil'")
-        return PallasDIAOperator.from_dia(dia, dtype=dtype, device=device)
-    raise _not_ported("a matrix that is not banded (more than 16 diagonals,"
-                      " or nnz < 0.4·ndiag·n): the unpadded CSR/ELL/DIA/dense"
-                      " operators of make_operator", "A2 / A8")
+        return make_operator(a, dtype=dtype, format=format, device=device)
+    if format is None and not is_banded(a):
+        return make_operator(a, dtype=dtype, device=device)
+    dia = a.to_dia(max_diags=DIA_MAX_DIAGS)
+    if format != "pallas_dia":
+        # detection is an exact proof, so the matrix-free operator is always
+        # safe
+        if detect_const_stencil(dia) is not None:
+            try:
+                return ConstStencilOperator.from_dia(dia, dtype=dtype,
+                                                     device=device)
+            except ValueError:
+                # no stencil layout within its budget; DIA still applies
+                if format == "stencil":
+                    raise
+        elif format == "stencil":
+            raise ValueError("matrix is not a constant-coefficient grid"
+                             " stencil; drop format='stencil'")
+    return PallasDIAOperator.from_dia(dia, dtype=dtype, device=device)
 
 
 def _build_setup(a, op, dt: torch.dtype, config: SolverConfig):
@@ -355,11 +353,14 @@ def _build_setup(a, op, dt: torch.dtype, config: SolverConfig):
     phase: analysis + factorization, pbicgstab.cu:335-363).  Returns
     ``(op, pre)``, ``pre`` None for the h-form loop.
 
-    Exact ILU(0) keeps the operator's layout: its triangular solves work on
-    true-n vectors, adapted at the msolve boundary.  Jacobi multiplies by
-    1/diag in the padded layout.  The Neumann series builds its factors in
-    the operator's layout; with constant factors on a stencil it re-plans
-    that layout for its fused series stencils first."""
+    An unpadded operator takes the preconditioner on true-n vectors.  On a
+    padded one, exact ILU(0) keeps the operator's layout: its triangular
+    solves work on true-n vectors, adapted at the msolve boundary.  Jacobi
+    multiplies by 1/diag in the padded layout.  The Neumann series builds
+    its factors in the operator's layout (with constant factors on a
+    stencil it re-plans that layout for its fused series stencils first);
+    where they do not fit it, the JAX package's fallback replaces the
+    operator by an unpadded one and runs the series on true-n vectors."""
     kind = config.precond
     if kind in _HFORM:
         return op, None
@@ -367,10 +368,11 @@ def _build_setup(a, op, dt: torch.dtype, config: SolverConfig):
         # a device operator: any preconditioner request runs the identity,
         # as the JAX package's _build_setup does (ROADMAP C7)
         return op, IdentityPreconditioner()
+    if not is_padded(op):
+        return op, _true_n_preconditioner(a, op.device, dt, config)
     if kind == "ilu0":
-        return op, PaddedPreconditioner(make_preconditioner(
-            "ilu0", a, block=config.trisolve_block, dtype=dt,
-            device=op.device, milu_omega=config.milu_omega), op)
+        return op, PaddedPreconditioner(
+            _true_n_preconditioner(a, op.device, dt, config), op)
     if kind == "jacobi":
         diag = a.diagonal()
         if np.any(diag == 0):
@@ -389,8 +391,8 @@ def _build_setup(a, op, dt: torch.dtype, config: SolverConfig):
             # built keeps the first one, and the sequential series applies
             try:
                 op = ConstStencilOperator.from_dia(
-                    a.to_dia(max_diags=16), dtype=dt, device=op.device,
-                    min_sub=plan[0], block_target=plan[1])
+                    a.to_dia(max_diags=DIA_MAX_DIAGS), dtype=dt,
+                    device=op.device, min_sub=plan[0], block_target=plan[1])
             except ValueError:
                 pass
     try:
@@ -398,12 +400,16 @@ def _build_setup(a, op, dt: torch.dtype, config: SolverConfig):
             a, terms=config.neumann_terms, pad_like=op,
             const_factors=config.neumann_const_factors,
             milu_omega=config.milu_omega)
-    except ValueError as e:
-        # the JAX package falls back to unpadded operators here
-        raise _not_ported(f"Neumann-series ILU(0) whose factors do not fit"
-                          f" the padded layout ({e})",
-                          "A2 (unpadded factor operators)") from e
+    except ValueError:
+        op = make_operator(a, dtype=dt, device=op.device)
+        pre = _true_n_preconditioner(a, op.device, dt, config)
     return op, pre
+
+
+def _true_n_preconditioner(a, device, dt: torch.dtype, config: SolverConfig):
+    return make_preconditioner(config.precond, a, block=config.trisolve_block,
+                               dtype=dt, terms=config.neumann_terms,
+                               milu_omega=config.milu_omega, device=device)
 
 
 def host_matvec_f64(a: CSRMatrix, x) -> np.ndarray:
@@ -450,14 +456,19 @@ def _finish(op, out, dt_alg: float, dt_setup: float) -> SolveResult:
 class PreparedSolver:
     """Operator + preconditioner built once on one device; :meth:`solve`
     runs any number of right-hand sides through them (the reference's
-    setup/solve split, pbicgstab.cu:335-363 vs :366)."""
+    setup/solve split, pbicgstab.cu:335-363 vs :366).  With a permutation
+    ``perm`` the operator holds the reordered matrix: each solve permutes b
+    and x0 and scatters x back, and ``a`` stays the caller's matrix, so the
+    true residual is the caller's."""
 
-    def __init__(self, a, op, pre, config: SolverConfig, dt_setup: float):
+    def __init__(self, a, op, pre, config: SolverConfig, dt_setup: float,
+                 perm=None):
         self.a = a
         self.op = op
         self.pre = pre          # None: the h-form loop
         self._config = config
         self.dt_setup = dt_setup
+        self._perm = perm       # RCM: new index k holds input row perm[k]
 
     @property
     def n(self) -> int:
@@ -467,14 +478,19 @@ class PreparedSolver:
     def device(self) -> torch.device:
         return self.op.device
 
+    def _prep_vec(self, v) -> torch.Tensor:
+        v = np.asarray(v)
+        if self._perm is not None:
+            v = permute_vector(v, self._perm)
+        return self.op.pad_vec(v)
+
     def solve(self, b, x0: Optional[np.ndarray] = None) -> SolveResult:
         """Solve ``A x = b``; ``x0`` defaults to all-ones (reference
         pbicgstab.cu:306-308, :827-832)."""
         cfg = self._config
         _check_shapes(self.op, b)
-        bd = self.op.pad_vec(np.asarray(b))
-        x0d = self.op.pad_vec(np.ones(self.op.n) if x0 is None
-                              else np.asarray(x0))
+        bd = self._prep_vec(b)
+        x0d = self._prep_vec(np.ones(self.op.n) if x0 is None else x0)
         # dtAlg excludes H2D transfers (reference pbicgstab.h:108-109)
         device_sync(self.device)
         t1 = time.perf_counter()
@@ -495,8 +511,10 @@ class PreparedSolver:
                                check_halves=cfg.check_halves)
         device_sync(self.device)
         t2 = time.perf_counter()
-        return _attach_true_residual(
-            _finish(self.op, out, t2 - t1, self.dt_setup), self.a, b, cfg)
+        res = _finish(self.op, out, t2 - t1, self.dt_setup)
+        if self._perm is not None:
+            res.x = unpermute_vector(res.x, self._perm)
+        return _attach_true_residual(res, self.a, b, cfg)
 
 
 def make_solver(a, config: SolverConfig = DEFAULT_CONFIG,
@@ -504,17 +522,25 @@ def make_solver(a, config: SolverConfig = DEFAULT_CONFIG,
                 device="cuda") -> PreparedSolver:
     """Build the operator and preconditioner once on ``device`` (a
     ``torch.device`` or its name; CPU runs the kernels' plain twins).
-    ``format``: None, ``"stencil"`` or ``"pallas_dia"`` (see
-    :func:`_as_op`).  Configurations that are not ported raise
-    NotImplementedError naming their ROADMAP item."""
+    ``format``: None, ``"stencil"``, ``"pallas_dia"`` or one of
+    ``make_operator``'s (see :func:`_as_op`).  ``config.reorder="rcm"``
+    permutes a CSR matrix once by reverse Cuthill–McKee and builds both on
+    the permuted one.  ``debug=True`` raises NotImplementedError (ROADMAP
+    A10)."""
     t0 = time.perf_counter()
     dt = _dtype_of(config)
-    if config.reorder not in (None, "none"):
-        raise _not_ported(f"reorder={config.reorder!r}", "A8")
-    op = _as_op(a, dt, torch.device(device), format)
-    op, pre = _build_setup(a, op, dt, config)
+    perm, a_in, cfg = None, a, config
+    if cfg.reorder not in (None, "none") and isinstance(a, CSRMatrix):
+        if cfg.reorder != "rcm":
+            raise ValueError(f"unknown reorder {cfg.reorder!r}")
+        perm = rcm_permutation(a)
+        a_in = permute_csr(a, perm)
+        cfg = cfg.replace(reorder="none")
+    op = _as_op(a_in, dt, torch.device(device), format)
+    op, pre = _build_setup(a_in, op, dt, cfg)
     device_sync(op.device)
-    return PreparedSolver(a, op, pre, config, time.perf_counter() - t0)
+    return PreparedSolver(a, op, pre, cfg, time.perf_counter() - t0,
+                          perm=perm)
 
 
 def solve(a, b, config: SolverConfig = DEFAULT_CONFIG,
@@ -540,8 +566,8 @@ def bicgstab_split(a0, d, x0, b, config: SolverConfig = DEFAULT_CONFIG,
                    device="cuda") -> SolveResult:
     """BiCGSTAB on the split form ``(A0 + diag(d)) x = b`` with
     caller-supplied x0 (reference pbicgstab.cu:926-1088; the SpMV is the
-    fused d∘x + A0·x).  ``d`` is padded alongside the vectors: its pads are
-    zero, so d∘x keeps the padding a fixed point."""
+    fused d∘x + A0·x).  ``d`` lies in A0's operator's layout: on a padded
+    one its pads are zero, so d∘x keeps the padding a fixed point."""
     dt = _dtype_of(config)
     t0 = time.perf_counter()
     base = _as_op(a0, dt, torch.device(device), format)

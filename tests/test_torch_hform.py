@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import cuda_mat_tpu as cm
+from cuda_mat_tpu.precond import preconditioners as jpre
 
 import cuda_mat_tpu_torch as ct
 from cuda_mat_tpu_torch.ops import dia_spmv as tds
@@ -158,8 +159,17 @@ def test_make_preconditioner():
                                   f.numpy() / a.diagonal())
     ilu = tpre.make_preconditioner("ilu0", a, block=64, device="cpu")
     assert isinstance(ilu, tpre.ILU0Preconditioner)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tpre.make_preconditioner("ilu0_neumann", a, device="cpu")
+    # the Neumann series on true-n vectors, its factors unpadded operators,
+    # against the JAX package's on the same matrix (f64, 1e-13 of max|y|)
+    neu = tpre.make_preconditioner("ilu0_neumann", a, device="cpu")
+    assert isinstance(neu, tpre.NeumannILUPreconditioner)
+    assert neu.fused is False and not neu.nl.padded
+    neu_j = jpre.make_preconditioner(
+        "ilu0_neumann", cm.load_mm_sparse_matrix(os.path.join(DATA,
+                                                              "mat900.mtx")))
+    y_j = np.asarray(neu_j.msolve(f.numpy()))
+    assert np.abs(neu.msolve(f).numpy() - y_j).max() <= \
+        1e-13 * np.abs(y_j).max()
     with pytest.raises(ValueError, match="unknown"):
         tpre.make_preconditioner("ssor", a, device="cpu")
 

@@ -108,15 +108,22 @@ def test_refined_through_an_ilu0_solver_reaches_1e6():
 
 def test_ilu0_limits_match_jax():
     """The 2 GiB guard on the block inverses raises the JAX package's
-    error; a band wider than the block is not ported yet (the JAX package
-    takes its XLA blocked solver there)."""
+    error; a band wider than the block takes the generic blocked solver,
+    as in the JAX package: mat900 (bandwidth 31) at block 16 solves as the
+    JAX solve does (f64, ±2 iterations, x to rtol 1e-5)."""
     a_t = ct.grid_laplacian(1400, 100)
     with pytest.raises(ValueError) as e_j:
         jpre.ILU0Preconditioner.from_csr(a_t, block=1024)
     with pytest.raises(ValueError) as e_t:
         tpre.ILU0Preconditioner.from_csr(a_t, block=1024, device="cpu")
     assert str(e_t.value) == str(e_j.value)
-    _, mat900 = _load("mat900")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        ct.make_solver(mat900, _cfg(ct, "float64", precond="ilu0",
-                                    trisolve_block=16), device="cpu")
+    j900, mat900 = _load("mat900")
+    ps = ct.make_solver(mat900, _cfg(ct, "float64", precond="ilu0",
+                                     trisolve_block=16), device="cpu")
+    assert type(ps.pre.inner.tri).__name__ == "BlockTriangularSolver"
+    rt = ps.solve(np.ones(mat900.n))
+    rj = cm.solve(j900, np.ones(mat900.n), _cfg(cm, "float64",
+                                                precond="ilu0",
+                                                trisolve_block=16))
+    assert rt.converged and rj.converged and abs(rt.iters - rj.iters) <= 2
+    np.testing.assert_allclose(rt.x, rj.x, rtol=1e-5)

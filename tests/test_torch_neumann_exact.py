@@ -147,9 +147,10 @@ def _asymmetric_band(csr_cls, coo_cls, n=8000):
 
 def test_factor_layout_mismatch_raises():
     """Factors whose DIA layout differs from the operator's cannot share
-    its padded vectors: ValueError from the preconditioner, where the JAX
-    package's solver falls back to unpadded operators; the port's solver
-    raises NotImplementedError naming that ROADMAP item."""
+    its padded vectors: ValueError from the preconditioner.  The solver
+    then falls back to unpadded operators and the series on true-n
+    vectors, as the JAX package's does, and solves as it does (f64, ±2
+    iterations, x to 1e-8)."""
     a = _asymmetric_band(ct.CSRMatrix, TCOOMatrix)
     op = tds.PallasDIAOperator.from_dia(a.to_dia(), dtype=torch.float64,
                                         device="cpu")
@@ -157,10 +158,17 @@ def test_factor_layout_mismatch_raises():
     with pytest.raises(ValueError, match="padding"):
         tpre.NeumannILUPreconditioner.from_csr(a, pad_like=op)
     cfg = dict(maxit=2000, tol=1e-8, precond="ilu0_neumann")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        ct.make_solver(a, ct.SolverConfig(**cfg), format="pallas_dia",
-                       device="cpu")
+    ps_t = ct.make_solver(a, ct.SolverConfig(**cfg), format="pallas_dia",
+                          device="cpu")
     ps_j = cm.make_solver(_asymmetric_band(cm.CSRMatrix, JCOOMatrix),
                           cm.SolverConfig(**cfg),
                           format="pallas_dia")
     assert not hasattr(ps_j.op, "pad_vec")
+    assert not ps_t.op.padded
+    assert type(ps_t.op).__name__ == type(ps_j.op).__name__
+    assert type(ps_t.pre.nl).__name__ == type(ps_j.pre.nl).__name__
+    b = np.random.default_rng(0).uniform(1.0, 5.0, a.n)
+    rt, rj = ps_t.solve(b), ps_j.solve(b)
+    assert rt.status == rj.status == ct.SolverStatus.CONVERGED
+    assert abs(rt.iters - rj.iters) <= 2
+    assert np.linalg.norm(rt.x - rj.x) / np.linalg.norm(rj.x) <= 1e-8
