@@ -106,7 +106,21 @@ script exits non-zero:
    its setup;
    5d bicg on mat900 and mat10000, f64, card against CPU and the goldens;
    5e bicgstab_split of mat10000's split form as format="csr", card
-   against CPU and the golden.
+   against CPU and the golden;
+14. main path 6, the command line (cuda_mat_tpu_torch.cli.main in this
+   process, its output captured and read): (a) the reference's default
+   invocation -M data/mat10000.mtx --x64 (exact ILU(0), f64, the CLI's
+   random b) on B1 and B4a, in the window of the CLI's own b, true residual
+   <= 1e-6, beside the same on the CPU, and with -V of a ones vector on the
+   golden (45 ± 2, card and CPU within 2); (b) grid_laplacian(10000, 100)
+   written by the port's write_mm (1M rows) and solved through the CLI;
+   (c) mat900 with ilu0_neumann, format stencil and --fuse-blas1 on B5;
+   (d) mat3 and vec3 unpreconditioned on B3, x printed; (e) -D on (a): one
+   residual line a step, x bitwise (a)'s; (f) --checkpoint then --resume;
+   (g) --refine, and the f32 hint; (h) --profile, a trace with B1's and
+   B4's kernels; (i) the default random system; (j) the --devices
+   rejections; (k) one run of python -m cuda_mat_tpu_torch.cli in a
+   subprocess, which builds nothing.
 
 Times: a kernel's ``ms`` is the median time between CUDA events around one
 call of its front end, the host's work in between included (as twins and
@@ -119,11 +133,14 @@ launches, error, times and bound; the last line is {"ok": true, "device":
 import contextlib
 import dataclasses
 import faulthandler
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -131,6 +148,7 @@ import numpy as np
 import torch
 
 import cuda_mat_tpu_torch as ct
+from cuda_mat_tpu_torch import cli
 from cuda_mat_tpu_torch.formats import reorder
 from cuda_mat_tpu_torch.models import problems
 from cuda_mat_tpu_torch.native import loader as native
@@ -143,6 +161,7 @@ from cuda_mat_tpu_torch.ops import stencil2d as t2d
 from cuda_mat_tpu_torch.ops import trisolve as tri_mod
 from cuda_mat_tpu_torch.precond import preconditioners as pre_mod
 from cuda_mat_tpu_torch.solvers import bicgstab as bs
+from cuda_mat_tpu_torch.utils import build as ct_build
 from cuda_mat_tpu_torch.utils.timing import PhaseTimer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -235,6 +254,19 @@ NEUMANN_1M_ITERS = (370, 560)
 BLOCKED_SIDE = 316            # 99,856 rows, band 316 after RCM > B = 128
 BLOCKED_JAX_ITERS = 136       # the JAX package's CPU f64 solve
 BICG_GOLDEN = {"mat900": 35, "mat10000": 158}    # tests/goldens/*_bicg.npz
+# path 6.  The CLI's default solve draws b at random (P(zero) 0.2, seed 1),
+# which no golden uses, and its f64 trajectory parts from the last bit in a
+# stagnating tail: on mat10000 (exact ILU(0), tol 1e-6) the JAX package's
+# CPU count is 51 and the port's 48, and over one-ulp changes of b they
+# read 48..55 and 48..59 (tests/test_torch_cli_scan.py ulp 24); the window
+# is both ranges ± 2, the ILU slack.  b = ones runs the golden (45 ± 2).
+# The 1M file's family, grid_laplacian(R, 100) with the CLI's b, takes
+# 102-115 (JAX) and 102-130 (port) iterations at 50k-500k rows on the CPU
+# (... family 500 1000 2000 5000), more than path 2's b = ones at tol 1e-4;
+# 115 ± 45
+CLI_10K_ITERS = (46, 61)
+CLI_1M_ITERS = (70, 160)
+CLI_PROFILE_KERNELS = ("const_stencil_spmv_kernel", "chunk_walk_kernel")
 
 
 @contextlib.contextmanager
@@ -1731,6 +1763,221 @@ def bicg_and_split(dev):
                    HFORM_GOLDEN["mat10000_split"], HFORM_SLACK)
 
 
+def run_cli(argv):
+    """``cuda_mat_tpu_torch.cli.main(argv)`` in this process (so the launch
+    counters see it), its standard output and error captured."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+CLI_LINES = (("n", r"^n=(\d+),"), ("backend", r"backend=(\w+)$"),
+             ("iters", r"^iterations = (\d+),"),
+             ("rel_true", r"^true relative residual = (\S+)$"),
+             ("dt_alg", r"^algorithm delta time = (\S+) s$"),
+             ("setup", r"^setup time \(operator\+precond\) = (\S+) s$"),
+             ("total", r"^total delta time = (\S+) s$"),
+             ("failed", r"^method failed: (\w+) after"))
+
+
+def cli_step(tag, argv, want_rc=0):
+    """One CLI run of path 6: its exit code checked, its lines read, the
+    launches it made counted; printed in one line."""
+    c0 = counts()
+    t0 = time.perf_counter()
+    rc, out, err = run_cli(argv)
+    secs = time.perf_counter() - t0
+    c1 = counts()
+    d = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    s = {"success": "success" in out.splitlines(), "out": out, "err": err,
+         "launches": d}
+    for key, pat in CLI_LINES:
+        m = re.search(pat, out + err, re.M)
+        if m:
+            s[key] = m[1] if key in ("backend", "failed") else (
+                int(m[1]) if key in ("n", "iters") else float(m[1]))
+    shown = {k: s[k] for k, _ in CLI_LINES if k in s}
+    words = " ".join(os.path.basename(a) for a in argv)
+    print(f"6{tag}: cli {words} -> rc {rc}, {shown}, {secs:.3f} s, launches"
+          f" {d}", flush=True)
+    if rc != want_rc:
+        raise RuntimeError(f"6{tag}: rc {rc}, want {want_rc}: {err.strip()}")
+    return s
+
+
+def cli_solved(tag, s, window, backend="cuda", true_tol=1e-6):
+    """A CLI solve's gates: success on ``backend`` within ``window``
+    iterations, the true relative residual, and on the card B1 and B4a
+    carrying every matvec and msolve."""
+    it = s.get("iters", -1)
+    if not (s["success"] and s.get("backend") == backend
+            and window[0] <= it <= window[1]
+            and s.get("rel_true", np.inf) <= true_tol):
+        raise RuntimeError(f"6{tag}: want success on {backend} in {window}"
+                           f" iterations, true residual <= {true_tol}")
+    d = s["launches"]
+    if backend == "cuda" and (
+            d.get("const_stencil_spmv", 0) < 2 * it + 1
+            or d.get("banded_fused_msolve", 0) < 2 * it
+            or d.get("banded_sweep", 0) != 2 * d["banded_fused_msolve"]):
+        raise RuntimeError(f"6{tag}: B1/B4a did not carry the solve: {d}")
+    if backend == "cpu" and d:
+        raise RuntimeError(f"6{tag}: a CPU run launched kernels: {d}")
+    return it
+
+
+def debug_residuals(out):
+    """(k, value) of each ``i = k, residual norm = v`` line, in order."""
+    return [(int(m[1]), float(m[2])) for m in re.finditer(
+        r"^i = (\d+), residual norm = (\S+)$", out, re.M)]
+
+
+def cli_paths(tmp):
+    """Path 6 (a)-(j): the CLI on the card; see the module docstring."""
+    from cuda_mat_tpu_torch.io.mmio import write_mm, write_mm_dense_vector
+    from cuda_mat_tpu_torch.utils.checkpoint import load_checkpoint
+
+    data = {n: os.path.join(ROOT, "data", f"{n}.mtx")
+            for n in ("mat3", "vec3", "mat900", "mat10000")}
+    m10k = ["-M", data["mat10000"], "--x64"]
+    ck = {k: os.path.join(tmp, f"{k}.npz") for k in "aef"}
+    # (a) the reference's default invocation, card and CPU; b = ones
+    it_a = cli_solved("a", cli_step("a", m10k + ["--checkpoint", ck["a"]]),
+                      CLI_10K_ITERS)
+    it_c = cli_solved("a", cli_step("a cpu", m10k + ["--platform", "cpu"]),
+                      CLI_10K_ITERS, backend="cpu")
+    print(f"6a: the CLI's b: card {it_a}, cpu {it_c} iterations (window"
+          f" {CLI_10K_ITERS})", flush=True)
+    ones = os.path.join(tmp, "ones.mtx")
+    write_mm_dense_vector(ones, np.ones(10000))
+    g = ILU_GOLDEN["mat10000"]
+    it_1 = cli_solved("a ones", cli_step("a ones", m10k + ["-V", ones]),
+                      (g - 2, g + 2))
+    it_1c = cli_solved("a ones", cli_step(
+        "a ones cpu", m10k + ["-V", ones, "--platform", "cpu"]),
+        (g - 2, g + 2), backend="cpu")
+    if abs(it_1 - it_1c) > 2:
+        raise RuntimeError(f"6a: b = ones, card {it_1} and cpu {it_1c}")
+    # (e) -D on (a): one residual line a step, the last the result's
+    s = cli_step("e", m10k + ["-D", "--checkpoint", ck["e"]])
+    it_e = cli_solved("e", s, CLI_10K_ITERS)
+    steps = debug_residuals(s["out"])
+    e, a = load_checkpoint(ck["e"]), load_checkpoint(ck["a"])
+    if not ([k for k, _ in steps] == list(range(len(steps)))
+            and len(steps) in (it_e, it_e + 1)
+            and steps[-1][1] == e.residual and e.iters == it_a
+            and np.array_equal(e.x, a.x)):
+        raise RuntimeError(f"6e: {len(steps)} residual lines for {it_e}"
+                           f" iterations, or x not (a)'s bit for bit")
+    print(f"6e: {len(steps)} residual lines, last {steps[-1]}, x equal to"
+          f" (a)'s bit for bit", flush=True)
+    # (b) realistic size: the 1M-row grid as a file written by write_mm
+    big = os.path.join(tmp, "grid_1m.mtx")
+    t0 = time.perf_counter()
+    write_mm(big, ct.grid_laplacian(*ONE_M))
+    t_write = time.perf_counter() - t0
+    mb = os.path.getsize(big) / 1e6
+    t0 = time.perf_counter()
+    n_load = ct.load_mm_sparse_matrix(big).n
+    t_load = time.perf_counter() - t0
+    s = cli_step("b", ["-M", big, "--x64"])
+    if s.get("n") != ONE_M[0] * ONE_M[1] or n_load != s["n"]:
+        raise RuntimeError(f"6b: n {s.get('n')}, want 1M rows")
+    it_b = cli_solved("b", s, CLI_1M_ITERS, true_tol=TRUE_RESIDUAL_1M)
+    print(f"6b: 1M rows: write_mm {t_write:.3f} s ({mb:.1f} MB),"
+          f" load_mm_sparse_matrix alone {t_load:.3f} s, CLI setup"
+          f" {s['setup']:.3f} s, dtAlg {s['dt_alg']:.3f} s"
+          f" ({s['dt_alg'] * 1e3 / it_b:.4f} ms/iter, {it_b} iterations),"
+          f" total {s['total']:.3f} s", flush=True)
+    os.remove(big)
+    # (c) the Neumann series with --fuse-blas1 on the stencil layout: B5
+    s = cli_step("c", ["-M", data["mat900"], "--precond", "ilu0_neumann",
+                       "--format", "stencil", "--fuse-blas1", "--x64"])
+    it = s.get("iters", 0)
+    if not (s["success"]
+            and s["launches"].get("const_series_msolve_fma", 0) >= 2 * it
+            and s["launches"].get("const_stencil_spmv", 0) >= 2 * it + 1):
+        raise RuntimeError("6c: B5 and B1 did not carry the solve")
+    # (d) the demo system on B3, x printed
+    s = cli_step("d", ["-M", data["mat3"], "-V", data["vec3"], "--precond",
+                       "none", "-P", "--x64"])
+    x = re.search(r"^\((.*)\)$", s["out"], re.M)
+    x = [float(t) for t in x[1].split()] if x else []
+    if not (s["success"] and len(x) == 3
+            and np.abs(np.array(x) - DEMO_X).max() <= 1e-6
+            and s["launches"].get("dia_spmv", 0) >= 1):
+        raise RuntimeError(f"6d: x {x}, or B3 not launched")
+    # (f) checkpoint, then resume
+    f = ["-M", data["mat900"], "--precond", "none", "--x64"]
+    cli_step("f", f + ["--maxit", "10", "--tol", "1e-14", "--checkpoint",
+                       ck["f"]], want_rc=2)
+    s = cli_step("f resume", f + ["--resume", ck["f"]])
+    if not (s["success"] and "resuming from" in s["out"]):
+        raise RuntimeError("6f: the resumed solve did not say so")
+    # (g) refinement, and the f32 run's hint
+    s = cli_step("g", ["-M", data["mat10000"], "--refine"])
+    if not (s["success"] and s.get("rel_true", 1.0) <= 1e-6):
+        raise RuntimeError("6g: --refine missed 1e-6")
+    s = cli_step("g f32", ["-M", data["mat10000"], "--dtype", "float32"])
+    hint = "rerun with --refine" in s["out"]
+    print(f"6g: f32 true relative residual {s.get('rel_true')!r}, hint"
+          f" printed: {hint}", flush=True)
+    if not s["success"] or hint != (s["rel_true"] > 10 * 1e-6):
+        raise RuntimeError("6g: the --refine hint disagrees with the f32"
+                           " run's own true residual")
+    # (h) a torch.profiler trace of (a)'s solve
+    prof = os.path.join(tmp, "profile")
+    cli_step("h", m10k + ["--profile", prof])
+    (trace,) = os.listdir(prof)
+    with open(os.path.join(prof, trace)) as fh:
+        names = {e["name"] for e in json.load(fh)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    found = {k: any(k in n for n in names) for k in CLI_PROFILE_KERNELS}
+    print(f"6h: {trace}: {len(names)} kernel names; {found}", flush=True)
+    if not all(found.values()):
+        raise RuntimeError(f"6h: the trace lacks a kernel: {found}")
+    # (i) the CLI's default random system (JAX on the CPU, f64: BREAKDOWN
+    # after 2 iterations)
+    rc, out, err = run_cli(["--x64"])
+    status = "success" if "success" in out.splitlines() else \
+        (re.search(r"^method failed: .*$", err, re.M) or [None])[0]
+    print(f"6i: the random system (-N 10000 -R 0.99, f64): rc {rc}, {status}",
+          flush=True)
+    if rc not in (0, 2) or not status:
+        raise RuntimeError(f"6i: rc {rc}: {err.strip()}")
+    # (j) the rejections of --devices
+    s = cli_step("j", ["-M", data["mat900"], "--devices", "2", "--precond",
+                       "jacobi", "--x64"], want_rc=1)
+    if "A11" not in s["err"]:
+        raise RuntimeError("6j: --devices without the distributed solver's"
+                           " message")
+    s = cli_step("j ilu0", ["-M", data["mat900"], "--devices", "2", "--x64"],
+                 want_rc=1)
+    if s["err"] != ("exact global ILU(0) does not distribute; use --precond"
+                    " bjacobi_ilu0 (per-shard ILU) or jacobi\n"):
+        raise RuntimeError("6j: not the JAX CLI's ILU(0) message")
+
+
+def cli_subprocess():
+    """Path 6 (k): ``python -m cuda_mat_tpu_torch.cli`` as a user runs it;
+    the kernels it loads were built before (the build directory gains no
+    library)."""
+    built = sorted(os.listdir(ct_build.BUILD_DIR))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cuda_mat_tpu_torch.cli", "-M",
+                        os.path.join("data", "mat10000.mtx"), "--x64"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    print(f"6k: python -m cuda_mat_tpu_torch.cli -M data/mat10000.mtx --x64:"
+          f" rc {p.returncode} in {secs:.3f} s;"
+          f" {' | '.join(p.stdout.strip().splitlines()[-5:])}", flush=True)
+    if p.returncode != 0 or "success" not in p.stdout.splitlines():
+        raise RuntimeError(f"6k: rc {p.returncode}: {p.stderr[-2000:]}")
+    if sorted(os.listdir(ct_build.BUILD_DIR)) != built:
+        raise RuntimeError("6k: the subprocess built a library")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2074,7 +2321,18 @@ def main():
     check_counted("main path 5 (unpadded operators)", path5,
                   ("const_stencil_spmv",))
 
-    paths = (path1, path2, path3, path4a, path4b, path5)
+    # ---- main path 6: the command line
+    reset_counts()
+    with phase(timer, "6a-6j the CLI"), tempfile.TemporaryDirectory() as tmp:
+        cli_paths(tmp)
+    path6 = counts()
+    check_counted("main path 6 (CLI)", path6,
+                  ("const_stencil_spmv", "banded_fused_msolve",
+                   "banded_sweep", "const_series_msolve_fma", "dia_spmv"))
+    with phase(timer, "6k the CLI in a subprocess"):
+        cli_subprocess()
+
+    paths = (path1, path2, path3, path4a, path4b, path5, path6)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(p[k] for p in paths), **stats[k]}

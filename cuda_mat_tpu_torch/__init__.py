@@ -2,9 +2,10 @@
 
 The JAX package stays the reference; this package mirrors its layout so
 each module's counterpart is easy to find, imports ``torch`` and numpy, and
-never JAX.  Ported: Matrix Market ingestion; the CSR/COO/ELL/DIA/BSR host
-formats; the reference's three entry points (``bicgstab``,
-``bicgstab_split``, ``bicgstab_lu_precond``), ``solve``/``make_solver``
+never JAX.  Ported: Matrix Market ingestion and writing; the
+CSR/COO/ELL/DIA/BSR host formats; the reference's three entry points
+(``bicgstab``, ``bicgstab_split``, ``bicgstab_lu_precond``),
+``solve``/``make_solver``
 and ``bicg`` on any square matrix — constant-coefficient grid stencils
 matrix-free, other bands as padded DIA, everything else (or any
 ``format="csr"|"ell"|"dia"|"bell"|"dense"``) on the unpadded operators of
@@ -14,9 +15,13 @@ or generic blocked triangular solves) or the Neumann-series ILU(0)/MILU(0)
 reordering (``reorder="rcm"``), the loop's opt-in fusions
 (``fuse_blas1``, ``fused_dots``, ``check_halves=False``), a device
 operator such as the 2-D tile stencil ``StencilOperator2D`` in place of a
-matrix, and f64 host refinement.  Not yet: ``debug=True`` and the CLI.
-The hot kernels are hand-written for Hopper (``csrc/*.cu``, built with nvcc
-at first use); on CPU tensors they run as plain PyTorch.
+matrix, f64 host refinement, the per-iteration ``debug=True`` prints, the
+command line (``python -m cuda_mat_tpu_torch.cli``), the generator
+(``python -m cuda_mat_tpu_torch.generator``), the host utilities
+(checkpoints, norms, dense QR, the OMP text formats) and the numpy CPU
+oracles.  Not yet: the distributed solver.  The hot kernels are
+hand-written for Hopper (``csrc/*.cu``, built with nvcc at first use); on
+CPU tensors they run as plain PyTorch.
 """
 
 from cuda_mat_tpu_torch.config import SolverConfig
@@ -25,7 +30,8 @@ from cuda_mat_tpu_torch.formats.coo import COOMatrix
 from cuda_mat_tpu_torch.formats.csr import CSRMatrix
 from cuda_mat_tpu_torch.formats.dia import DIAMatrix
 from cuda_mat_tpu_torch.formats.ell import ELLMatrix
-from cuda_mat_tpu_torch.io.mmio import load_mm_sparse_matrix, read_mm
+from cuda_mat_tpu_torch.io.mmio import (load_mm_sparse_matrix, read_mm,
+                                        write_mm)
 from cuda_mat_tpu_torch.io.vectors import to_dense_vector
 from cuda_mat_tpu_torch.models.problems import (banded_laplacian_dia,
                                                grid_laplacian, split_form)
@@ -62,4 +68,5 @@ __all__ = [
     "solve_refined",
     "split_form",
     "to_dense_vector",
+    "write_mm",
 ]

@@ -1,5 +1,6 @@
-"""Matrix Market (.mtx) reader and the MM → CSR ingestion path (numpy copy
-of :mod:`cuda_mat_tpu.io.mmio`'s reader, same semantics and error strings).
+"""Matrix Market (.mtx) reader, writer and the MM → CSR ingestion path
+(numpy copy of :mod:`cuda_mat_tpu.io.mmio`: the same semantics and error
+strings, and the writers' bytes).
 
 The reference's NIST ``mmio.c`` low-level reader (banner parse at reference
 mmio.c:102, size at :195, COO data at :271) plus the ``loadMMSparseMatrix``
@@ -13,6 +14,7 @@ oracle.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Tuple
 
 import numpy as np
@@ -103,3 +105,46 @@ def load_mm_sparse_matrix(path, symmetrize: bool = True,
             "skew-symmetric" if banner.symmetry == "skew-symmetric"
             else "symmetric")
     return CSRMatrix.from_coo(coo)
+
+
+_WRITE_LINES = 1 << 16      # entries formatted by one string operation
+
+
+def write_mm(path_or_file, matrix, symmetry: str = "general",
+             comment: str = "") -> None:
+    """Write a CSR/COO matrix as a 1-based Matrix Market coordinate file
+    (reference writers: mmio.c:392-405), one ``row col value`` line an
+    entry with the value as ``%.16e``.  The lines are formatted a chunk at
+    a time (one ``%`` over a repeated line template); the bytes are those
+    of formatting each line alone."""
+    coo = matrix.to_coo() if isinstance(matrix, CSRMatrix) else matrix
+    if hasattr(path_or_file, "write"):
+        f = path_or_file
+        close = False
+    else:
+        f = open(path_or_file, "w")
+        close = True
+    try:
+        f.write(f"%%MatrixMarket matrix coordinate real {symmetry}\n")
+        for line in comment.splitlines():
+            f.write(f"% {line}\n")
+        f.write(f"{coo.n} {coo.m} {coo.nnz}\n")
+        rows = (np.asarray(coo.rows, np.int64) + 1).tolist()
+        cols = (np.asarray(coo.cols, np.int64) + 1).tolist()
+        vals = np.asarray(coo.data, np.float64).tolist()
+        for i in range(0, coo.nnz, _WRITE_LINES):
+            j = min(i + _WRITE_LINES, coo.nnz)
+            f.write(("%d %d %.16e\n" * (j - i)) % tuple(
+                itertools.chain.from_iterable(
+                    zip(rows[i:j], cols[i:j], vals[i:j]))))
+    finally:
+        if close:
+            f.close()
+
+
+def write_mm_dense_vector(path_or_file, v: np.ndarray) -> None:
+    """Write a dense vector as an n×1 sparse MM file (vec3.mtx style)."""
+    v = np.asarray(v)
+    idx = np.arange(v.shape[0])
+    coo = COOMatrix(v.shape[0], 1, idx, np.zeros_like(idx), v)
+    write_mm(path_or_file, coo)

@@ -1,5 +1,5 @@
-"""Dense-vector helper mirroring the reference's (numpy copy of
-:mod:`cuda_mat_tpu.io.vectors`, trimmed to ``to_dense_vector``)."""
+"""Dense-vector helpers mirroring the reference's (numpy copy of
+:mod:`cuda_mat_tpu.io.vectors`)."""
 
 from __future__ import annotations
 
@@ -20,3 +20,9 @@ def to_dense_vector(vec_csr) -> np.ndarray:
             out[i] = vec_csr.data[count]
             count += 1
     return out
+
+
+def dump_vector(v: np.ndarray) -> str:
+    """Format a vector as ``(v0 v1 ... )`` — the reference's debug dump
+    (reference pbicgstab.h:81-88)."""
+    return "(" + "".join(f"{float(x):.6f} " for x in np.asarray(v)) + ")"

@@ -1,9 +1,8 @@
-"""Workload generators and the split form (host numpy copy of
-:mod:`cuda_mat_tpu.models.problems`, trimmed to the solve path's matrices):
-the reference's random sparse matrix and vector and the CLI's random
-system, made by the same numpy calls in the same order as the JAX package's,
-so one seed gives both packages the same arrays bit for bit; and the
-Laplacians.
+"""Workload generators, named fixtures and the split form (host numpy copy
+of :mod:`cuda_mat_tpu.models.problems`): the reference's random sparse
+matrix and vector and the CLI's random system, made by the same numpy calls
+in the same order as the JAX package's, so one seed gives both packages the
+same arrays bit for bit; the Laplacians; the bundled ``.mtx`` fixtures.
 
 ``grid_laplacian(100000, 100)`` is the 10M-row flagship;
 ``banded_laplacian(100)`` reproduces the symmetrized mat10000 fixture and
@@ -14,6 +13,7 @@ bench's 10M-row SpMV matrix.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -21,6 +21,20 @@ import numpy as np
 from cuda_mat_tpu_torch.formats.coo import COOMatrix
 from cuda_mat_tpu_torch.formats.csr import CSRMatrix
 from cuda_mat_tpu_torch.formats.dia import DIAMatrix
+
+# the repository's data/ directory, beside this package
+_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "data")
+
+
+def fixture_path(name: str) -> str:
+    """Path of a bundled ``.mtx`` fixture (mat3, vec3, mat3_A0, vec3_d,
+    mat900, mat10000)."""
+    p = os.path.join(_DATA_DIR,
+                     name if name.endswith(".mtx") else name + ".mtx")
+    if not os.path.exists(p):
+        raise FileNotFoundError(p)
+    return p
 
 
 def gen_rand_csr_matrix(n: int, m: int, probability_of_zero: float,

@@ -22,18 +22,22 @@ import torch
 from cuda_mat_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from cuda_mat_tpu_torch.formats.csr import CSRMatrix
 from cuda_mat_tpu_torch.ops.operators import make_operator
-from cuda_mat_tpu_torch.solvers.bicgstab import (_attach_true_residual,
+from cuda_mat_tpu_torch.solvers.bicgstab import (LoopWatch,
+                                                 _attach_true_residual,
                                                  _dtype_of)
 from cuda_mat_tpu_torch.solvers.result import SolveResult, SolverStatus
 from cuda_mat_tpu_torch.utils.timing import device_sync
 
 
-def bicg_core(matvec, matvec_t, b: torch.Tensor, eps: float, maxit: int):
+def bicg_core(matvec, matvec_t, b: torch.Tensor, eps: float, maxit: int,
+              debug: bool = False):
     """The BiCG loop from x0 = ones.  Returns ``(x, status, iters, check,
     norm, hist)`` as device tensors: ``status`` 1 converged, 0 not;
     ``check`` the last relative residual tested; ``hist`` (maxit,) the
-    checks, −1 where none ran."""
+    checks, −1 where none ran (``debug``: see
+    :class:`~cuda_mat_tpu_torch.solvers.bicgstab.LoopWatch`)."""
     dot = torch.dot
+    watch = LoopWatch(("iter = {}, check = {}",), debug)
     norm = torch.sqrt(dot(b, b))
     eps_t = torch.tensor(eps, dtype=b.dtype, device=b.device)
     x = torch.ones_like(b)
@@ -59,7 +63,7 @@ def bicg_core(matvec, matvec_t, b: torch.Tensor, eps: float, maxit: int):
         i_t = torch.where(conv, i_t, i_t + 1)
         status_t = conv.to(torch.int32)
         r, bir, p, bip = nr, nbir, nr + beta * p, nbir + beta * bip
-        status, i = torch.stack([status_t, i_t]).tolist()
+        status, i = watch.poll(status_t, i_t, (check,), i)
     return x, status_t, i_t, check, norm, hist
 
 
@@ -84,7 +88,7 @@ def bicg(a, b, config: SolverConfig = DEFAULT_CONFIG,
     device_sync(op.device)
     t1 = time.perf_counter()
     x, status, iters, check, norm, hist = bicg_core(
-        op.matvec, op_t.matvec, bd, config.tol, config.maxit)
+        op.matvec, op_t.matvec, bd, config.tol, config.maxit, config.debug)
     device_sync(op.device)
     t2 = time.perf_counter()
     res = SolveResult(

@@ -12,7 +12,7 @@ banded DIA operator (kernel B3), both over padded vectors; the rest, and
 any ``format="csr"|"ell"|"dia"|"bell"|"dense"``, on the unpadded
 operators of ``make_operator`` over true-n vectors.  A device operator —
 padded, such as ``StencilOperator2D`` (kernel B7), or unpadded — may stand
-in place of the matrix.  Only ``debug=True`` is not ported (ROADMAP A10).
+in place of the matrix.
 
 Both loops keep the JAX package's update order exactly — the preconditioned
 one its flat, select-based body, the first-half convergence exit that does
@@ -21,10 +21,16 @@ history; the h-form its ``|omega|`` breakdown guard and ``(maxit,)``
 history.  Scalars stay on the device as 0-d tensors.  The host reads
 ``status`` and ``i`` once per iteration (one ``torch.stack([...]).tolist()``)
 to decide whether to go on; everything else is queued without waiting.
+``debug=True`` prints the JAX loops' ``jax.debug.print`` lines, and inside
+:func:`debug_nans` the loops raise FloatingPointError at the first
+non-finite residual; the residuals they need ride on the same read.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
 import time
 from typing import NamedTuple, Optional
 
@@ -109,17 +115,76 @@ def loop_constants(dt: torch.dtype, device, tol: float) -> _Consts:
                    s(_BREAKDOWN))
 
 
-def hform_core(matvec, dot, x0, b, tol: float, btol: float, maxit: int):
+_DEBUG_NANS = contextvars.ContextVar("debug_nans", default=False)
+
+
+@contextlib.contextmanager
+def debug_nans(enabled: bool = True):
+    """Within the block, every solver loop raises FloatingPointError at the
+    first non-finite residual it polls, naming the iteration: the
+    counterpart of JAX's ``jax_debug_nans``, scoped to the block (as
+    ``torch.autograd.detect_anomaly`` is) instead of global."""
+    token = _DEBUG_NANS.set(enabled)
+    try:
+        yield
+    finally:
+        _DEBUG_NANS.reset(token)
+
+
+class LoopWatch:
+    """What the host does with each iteration's poll besides deciding
+    whether to go on: ``debug`` prints the JAX loop's ``jax.debug.print``
+    lines (``lines``, one format a polled residual, each given the loop
+    counter before the step and the value as a Python float, which is how
+    ``jax.debug.print`` formats a float32 or float64 scalar); inside
+    :func:`debug_nans` it raises FloatingPointError at the first non-finite
+    residual.  The residuals come back in the one read the loop makes
+    anyway, as float64 (exact for float32)."""
+
+    def __init__(self, lines, debug: bool = False):
+        self.lines = tuple(lines)
+        self.debug = debug
+        self.debug_nans = _DEBUG_NANS.get()
+
+    def start(self, line: str, value: torch.Tensor) -> None:
+        """The line printed once before the loop."""
+        if self.debug:
+            print(line.format(value.item()))
+
+    def poll(self, status, i_next, residuals, i: int):
+        """Read ``status``, ``i_next`` and, when printing or checking,
+        ``residuals`` back in one transfer; report the residuals of the step
+        that began at ``i``.  Returns ``(status, i_next)`` as Python ints."""
+        if not (self.debug or self.debug_nans):
+            status, i_next = torch.stack([status, i_next]).tolist()
+            return status, i_next
+        vals = torch.stack([status.to(torch.float64),
+                            i_next.to(torch.float64)]
+                           + [v.to(torch.float64) for v in residuals]).tolist()
+        for line, v in zip(self.lines, vals[2:]):
+            if self.debug:
+                print(line.format(i, v))
+            if self.debug_nans and not math.isfinite(v):
+                raise FloatingPointError(
+                    f"non-finite residual {v} at iteration {i}")
+        return int(vals[0]), int(vals[1])
+
+
+def hform_core(matvec, dot, x0, b, tol: float, btol: float, maxit: int,
+               debug: bool = False):
     """h-form BiCGSTAB loop (reference gpu_pbicgstab2, pbicgstab.cu:488-573),
     generic over ``matvec``/``dot``: scalar recurrences rho/alpha/omega, the
     explicit intermediate h = x0 + αp̂, the convergence check, then the
     |omega| breakdown guard.  Returns ``(x, status, iters, norm, norm0,
     hist)`` as device tensors; the host polls ``status`` and ``i`` once per
-    iteration, as in :func:`precond_core`."""
+    iteration, as in :func:`precond_core` (``debug``: see
+    :class:`LoopWatch`)."""
     c = loop_constants(b.dtype, b.device, tol)
     btol_t = torch.tensor(btol, dtype=b.dtype, device=b.device)
+    watch = LoopWatch(("k = {}, norm = {}",), debug)
     r0 = b - matvec(x0)
     norm0 = torch.sqrt(dot(r0, r0))
+    watch.start("initial norm = {}", norm0)
     z = torch.zeros_like(b)
     st = _HState(torch.zeros((), dtype=torch.int32, device=b.device),
                  c.running, z, x0, r0, z, z, c.one, c.one, c.one, norm0,
@@ -145,7 +210,7 @@ def hform_core(matvec, dot, x0, b, tol: float, btol: float, maxit: int):
                      torch.where(conv, c.converged,
                                  torch.where(broke, c.breakdown, c.running)),
                      x, x, r_, p_, v_, rho_, alpha, omega, norm, st.hist)
-        status, i = torch.stack([st.status, st.i]).tolist()
+        status, i = watch.poll(st.status, st.i, (norm,), i)
     return st.x, st.status, st.i, st.norm, norm0, st.hist
 
 
@@ -252,7 +317,7 @@ def precond_step(matvec, msolve, dot, st: _PState, i: int, c: _Consts,
 
 def precond_core(matvec, msolve, dot, x0, b, tol: float, maxit: int,
                  matvec_dots=None, msolve_fma=None,
-                 check_halves: bool = True):
+                 check_halves: bool = True, debug: bool = False):
     """Preconditioned BiCGSTAB loop (reference gpu_pbicgstab,
     pbicgstab.cu:45-154), generic over ``matvec``/``msolve``/``dot``, with
     the opt-in variants of :func:`precond_step`.  Returns ``(x, status,
@@ -260,14 +325,20 @@ def precond_core(matvec, msolve, dot, x0, b, tol: float, maxit: int,
 
     The host polls ``status`` and ``i`` once per iteration; that read waits
     for the iteration to finish, so the device idles while the host queues
-    the next one."""
+    the next one.  ``debug``: see :class:`LoopWatch`; the first-half
+    residual is the step's first history slot."""
     c = loop_constants(b.dtype, b.device, tol)
+    lines = ("i = {}, residual norm (before precond) = {}",) \
+        if check_halves else ()
+    watch = LoopWatch(lines + ("i = {}, residual norm = {}",), debug)
     st = precond_init(matvec, dot, x0, b, maxit, c)
+    watch.start("gpu, init residual:norm {}", st.nrmr0)
     status, i = _RUNNING, 0
     while i < maxit and status == _RUNNING:
         st = precond_step(matvec, msolve, dot, st, i, c, matvec_dots,
                           msolve_fma, check_halves)
-        status, i = torch.stack([st.status, st.i]).tolist()
+        residuals = (st.hist[2 * i], st.nrmr) if check_halves else (st.nrmr,)
+        status, i = watch.poll(st.status, st.i, residuals, i)
     return st.x, st.status, st.i, st.nrmr, st.nrmr0, st.hist
 
 
@@ -283,9 +354,6 @@ _PADDED_FORMATS = ("pallas_dia", "stencil")
 def _dtype_of(config: SolverConfig) -> torch.dtype:
     if config.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {config.dtype!r}")
-    if config.debug:
-        raise NotImplementedError("debug is not ported to cuda_mat_tpu_torch"
-                                  " yet (ROADMAP A10)")
     return _DTYPES[config.dtype]
 
 
@@ -496,7 +564,7 @@ class PreparedSolver:
         t1 = time.perf_counter()
         if self.pre is None:
             out = hform_core(self.op.matvec, torch.dot, x0d, bd, cfg.tol,
-                             cfg.breakdown_tol, cfg.maxit)
+                             cfg.breakdown_tol, cfg.maxit, cfg.debug)
         else:
             # the opt-in variants engage where the operator and the
             # preconditioner offer them (the JAX package's _precond_solve)
@@ -508,7 +576,8 @@ class PreparedSolver:
             out = precond_core(self.op.matvec, self.pre.msolve, torch.dot,
                                x0d, bd, cfg.tol, cfg.maxit, matvec_dots=mvd,
                                msolve_fma=mfma,
-                               check_halves=cfg.check_halves)
+                               check_halves=cfg.check_halves,
+                               debug=cfg.debug)
         device_sync(self.device)
         t2 = time.perf_counter()
         res = _finish(self.op, out, t2 - t1, self.dt_setup)
@@ -525,8 +594,7 @@ def make_solver(a, config: SolverConfig = DEFAULT_CONFIG,
     ``format``: None, ``"stencil"``, ``"pallas_dia"`` or one of
     ``make_operator``'s (see :func:`_as_op`).  ``config.reorder="rcm"``
     permutes a CSR matrix once by reverse Cuthill–McKee and builds both on
-    the permuted one.  ``debug=True`` raises NotImplementedError (ROADMAP
-    A10)."""
+    the permuted one."""
     t0 = time.perf_counter()
     dt = _dtype_of(config)
     perm, a_in, cfg = None, a, config
@@ -578,7 +646,7 @@ def bicgstab_split(a0, d, x0, b, config: SolverConfig = DEFAULT_CONFIG,
     device_sync(base.device)
     t1 = time.perf_counter()
     out = hform_core(op.matvec, torch.dot, x0d, bd, config.tol,
-                     config.breakdown_tol, config.maxit)
+                     config.breakdown_tol, config.maxit, config.debug)
     device_sync(base.device)
     t2 = time.perf_counter()
     return _attach_true_residual(_finish(base, out, t2 - t1, t1 - t0), a0, b,

@@ -15,6 +15,11 @@ from typing import Dict, Optional
 import torch
 
 
+def second() -> float:
+    """Wall clock in seconds (name kept from reference helper_cusolver.h:124)."""
+    return time.perf_counter()
+
+
 def device_sync(device) -> None:
     """Wait for all work queued on ``device`` (no-op on the CPU)."""
     device = torch.device(device)
@@ -37,3 +42,6 @@ class PhaseTimer:
             if device is not None:
                 device_sync(device)
             self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+
+    def report(self) -> str:
+        return "\n".join(f"{k}: {v:.6f} s" for k, v in self.times.items())

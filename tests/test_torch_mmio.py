@@ -78,3 +78,62 @@ def test_symmetrize_flag():
         a = tmm.load_mm_sparse_matrix(path, symmetrize=False,
                                       prefer_native=native)
         assert a.nnz == 4322
+
+
+def _written(write, *args, **kw):
+    f = io.StringIO()
+    write(f, *args, **kw)
+    return f.getvalue()
+
+
+@pytest.mark.parametrize("name", ["mat3.mtx", "mat900.mtx", "mat10000.mtx",
+                                  "vec3.mtx"])
+def test_write_mm_bytes_equal_jax_and_round_trip(name, tmp_path):
+    """``write_mm`` formats a chunk of lines at a time; its bytes are the
+    JAX writer's line by line, for a CSR matrix and for its COO, and the
+    file loads back to the same CSR arrays."""
+    path = os.path.join(DATA, name)
+    a_t = tmm.load_mm_sparse_matrix(path)
+    a_j = jmm.load_mm_sparse_matrix(path, prefer_native=False)
+    for kw in ({}, {"symmetry": "general", "comment": "one\ntwo"}):
+        text = _written(tmm.write_mm, a_t, **kw)
+        assert text == _written(jmm.write_mm, a_j, **kw)
+        assert _written(tmm.write_mm, a_t.to_coo(), **kw) == text
+    out = tmp_path / name
+    tmm.write_mm(str(out), a_t)
+    assert out.read_text() == _written(jmm.write_mm, a_j)
+    back = tmm.load_mm_sparse_matrix(str(out))
+    for f in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(back, f), getattr(a_t, f)), f
+
+
+def test_write_mm_past_one_chunk_equals_jax():
+    """More entries than one formatting chunk (65,536 lines), with values
+    that test the %.16e format's edges."""
+    from cuda_mat_tpu.formats.coo import COOMatrix as JCOO
+
+    from cuda_mat_tpu_torch.formats.coo import COOMatrix as TCOO
+
+    rng = np.random.default_rng(0)
+    nnz = 3 * (1 << 16) + 5
+    rows = rng.integers(0, 50000, nnz)
+    cols = rng.integers(0, 50000, nnz)
+    vals = rng.standard_normal(nnz) * 10.0 ** rng.integers(-300, 300, nnz)
+    vals[:6] = [0.0, -0.0, 1.0, -1.0, 5e-324, 1.7976931348623157e308]
+    text = _written(tmm.write_mm, TCOO(50000, 50000, rows, cols, vals))
+    assert text == _written(jmm.write_mm, JCOO(50000, 50000, rows, cols,
+                                               vals))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_write_mm_dense_vector_equals_jax(dtype, tmp_path):
+    v = np.random.default_rng(1).standard_normal(37).astype(dtype)
+    text = _written(tmm.write_mm_dense_vector, v)
+    assert text == _written(jmm.write_mm_dense_vector, v)
+    p = tmp_path / "v.mtx"
+    tmm.write_mm_dense_vector(str(p), v)
+    _, coo = tmm.read_mm(str(p))
+    from cuda_mat_tpu_torch import CSRMatrix, to_dense_vector
+
+    assert np.array_equal(to_dense_vector(CSRMatrix.from_coo(coo)),
+                          v.astype(np.float64))

@@ -82,12 +82,22 @@ def test_refined_reaches_1e6(name):
     assert abs(rt.iters - rj.iters) <= 15
 
 
-def test_unported_configs_raise():
-    """``debug=True`` (the in-loop residual print) is the one configuration
-    still to port (ROADMAP A10)."""
+def test_unported_configs_raise(capsys):
+    """``debug=True`` (the in-loop residual print), the last configuration
+    that raised, is ported: it builds, solves to the same x as without it
+    and prints one ``k = i, norm = …`` line a step, the last one the
+    result's residual."""
     a = tprob.grid_laplacian(8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        ct.make_solver(a, ct.SolverConfig(debug=True), device="cpu")
+    b = np.random.default_rng(0).uniform(1.0, 5.0, a.n)
+    plain = ct.make_solver(a, ct.SolverConfig(), device="cpu").solve(b)
+    capsys.readouterr()
+    r = ct.make_solver(a, ct.SolverConfig(debug=True), device="cpu").solve(b)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("initial norm = ")
+    assert [ln.split(",")[0] for ln in lines[1:]] == [
+        f"k = {k}" for k in range(r.iters)]
+    assert float(lines[-1].rsplit("= ", 1)[1]) == r.residual
+    assert r.iters == plain.iters and np.array_equal(r.x, plain.x)
 
 
 def _wide(mod, n=64):
