@@ -89,7 +89,10 @@ script exits non-zero:
    card and once on the CPU: BREAKDOWN in 2..191 iterations (the
    reference's behaviour on this system; the iteration moves with the
    sum order), and each solve stopped after one iteration within 1e-4 of
-   the f64 one's;
+   the f64 one's; and, reported, Jacobi's status on the card beside the
+   CPU on the CLI's system and on random_diag_nonzero_system(300, 0.9,
+   seed=1) (ROADMAP C9: the JAX package runs to MAXIT, the port's CPU
+   solves break down);
    5b the shuffled banded_laplacian(1000) (1M rows, numbered at random):
    ELL's matvec as in 5a; (i) Jacobi on ELL, f64, tol 1e-6, twice:
    CONVERGED in 1165..1800 iterations, the two bitwise equal; (ii)
@@ -118,9 +121,23 @@ script exits non-zero:
    (d) mat3 and vec3 unpreconditioned on B3, x printed; (e) -D on (a): one
    residual line a step, x bitwise (a)'s; (f) --checkpoint then --resume;
    (g) --refine, and the f32 hint; (h) --profile, a trace with B1's and
-   B4's kernels; (i) the default random system; (j) the --devices
-   rejections; (k) one run of python -m cuda_mat_tpu_torch.cli in a
-   subprocess, which builds nothing.
+   B4's kernels; (i) the default random system; (j) --devices with exact
+   ILU(0) rejected with the JAX CLI's message; (k) one run of python -m
+   cuda_mat_tpu_torch.cli in a subprocess, which builds nothing;
+15. main path 7, the distributed solver (cuda_mat_tpu_torch.parallel, the
+   JAX package's "xla" engine: stock torch ops) on N row shards of the
+   card: (a) the 10M grid, exact-factor Neumann k=3, f32, tol 1e-4, on
+   N = 1, 2, 4, 8 (status, iterations, ms/iter, dt_setup, peak device
+   memory), each within DIST_10M_GATE of path 3 (a)'s one-device count,
+   then solve_refined over 4 shards to 1e-6; (b) the 1M grid in f64,
+   no preconditioner and Jacobi, 4 shards, against the one-device solve
+   on the unpadded DIA operator; (c) block-Jacobi ILU(0) on mat10000 on
+   1 (within ±1 of path 2's global ILU(0) count), 2, 4, 8 shards and on
+   the 316² grid on 8; (d) Jacobi on the shuffled 316² grid, 4 shards: an
+   ELL partition and an all-gather of x; (e) the CLI: -M mat10000.mtx
+   --devices 4 --precond none --x64 (the JAX CLI's own example), --precond
+   jacobi --refine, and the rejections of ilu0, --format and --reorder;
+   the launch counts show no kernel B1-B7 in path 7.
 
 Times: a kernel's ``ms`` is the median time between CUDA events around one
 call of its front end, the host's work in between included (as twins and
@@ -133,6 +150,7 @@ launches, error, times and bound; the last line is {"ok": true, "device":
 import contextlib
 import dataclasses
 import faulthandler
+import importlib
 import io
 import json
 import os
@@ -159,10 +177,15 @@ from cuda_mat_tpu_torch.ops import operators as ops
 from cuda_mat_tpu_torch.ops import stencil as st
 from cuda_mat_tpu_torch.ops import stencil2d as t2d
 from cuda_mat_tpu_torch.ops import trisolve as tri_mod
+from cuda_mat_tpu_torch import parallel as par
+from cuda_mat_tpu_torch.parallel import partition as par_partition
 from cuda_mat_tpu_torch.precond import preconditioners as pre_mod
-from cuda_mat_tpu_torch.solvers import bicgstab as bs
 from cuda_mat_tpu_torch.utils import build as ct_build
 from cuda_mat_tpu_torch.utils.timing import PhaseTimer
+
+# the module: the package exports the function of the same name, as the
+# JAX package's cuda_mat_tpu.solvers does
+bs = importlib.import_module("cuda_mat_tpu_torch.solvers.bicgstab")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = (100000, 100)      # grid rows, cols: 10M rows, 50M nonzeros
@@ -267,6 +290,44 @@ BICG_GOLDEN = {"mat900": 35, "mat10000": 158}    # tests/goldens/*_bicg.npz
 CLI_10K_ITERS = (46, 61)
 CLI_1M_ITERS = (70, 160)
 CLI_PROFILE_KERNELS = ("const_stencil_spmv_kernel", "chunk_walk_kernel")
+# path 7, the distributed solver ("xla" engine) on N row shards of the card.
+# Each count moves with the order in which the dots are summed, so with N;
+# each gate is how far the JAX package's own N-shard counts lie from its
+# one-device count on the CPU (tests/test_torch_parallel_scan.py, modes
+# neumann, hform, shuffled).  (a) path 3 (a)'s algorithm, exact-factor
+# Neumann k=3 in f32, on grid_laplacian(R, 100) with b = ones: up to 9 /
+# 12 / 19 at R = 500 / 1000 / 2000, wider than ±5, so ±19 around path 3
+# (a)'s count.  That is one b: over it and 7 one-ulp changes of it (mode
+# neumann-ulp) the JAX package's counts lie up to 21 / 37 / 47 from its
+# one-device count and the port's CPU counts up to 17 / 26 / 30, so ±19
+# is narrower than either package's spread over rounding.  The card's
+# counts hold it (10 off at most, the same bits run after run); the
+# answer itself is checked by DIST_10M_TRUE_RES and DIST_10M_DX.  (b)
+# f64, h-form and Jacobi: up to 7% at 1M rows and 9% at 200k, so 10% of
+# the one-device count (6 at least, the goldens' h-form slack).  (d)
+# Jacobi on the shuffled 316² grid: path 5b's window (1165..1800) is the
+# 1M grid's and cannot hold this grid's count, so its rule is applied
+# here: over 4 renumberings, one device and N = 4, JAX 362-379, the
+# port's CPU 352-396; 340..420.
+DIST_SHARDS = (1, 2, 4, 8)
+DIST_10M_CFG = ct.SolverConfig(maxit=2000, tol=1e-4, dtype="float32",
+                               precond="ilu0_neumann", neumann_terms=3,
+                               neumann_const_factors=False)
+DIST_10M_GATE = 19
+# and, since a halo fault hardly moves a count (on the CPU at R = 1000,
+# with the shard couplings dropped, N = 2 took 98 iterations against one
+# device's 100), every N's true f64 relative residual and its x against
+# path 3 (a)'s: an H100 read 5.4e-4..7.4e-4 (one device 6.9e-4) and the
+# CPU at R = 1000 1.0e-3..1.5e-3 (both packages) with x within 6.6e-5;
+# with the couplings dropped 1.3-3.3 and 0.19-0.51
+DIST_10M_TRUE_RES = 2e-3
+DIST_10M_DX = 1e-3
+DIST_1M_CFG = ct.SolverConfig(maxit=5000, tol=1e-6, dtype="float64")
+DIST_1M_SLACK = 6
+DIST_1M_REL = 0.10
+DIST_BJ_CFG = ct.SolverConfig(maxit=2000, tol=1e-6, dtype="float64",
+                              precond="bjacobi_ilu0", trisolve_block=128)
+DIST_ALLGATHER_ITERS = (340, 420)
 
 
 @contextlib.contextmanager
@@ -782,7 +843,7 @@ def check_counted(path, got, kernels):
 def reference_solves(cfg, dev):
     """bicgstab_lu_precond on mat900 and mat10000, card against CPU and the
     goldens, f64 then f32 (path 2)."""
-    mats = {}
+    mats, its = {}, {}
     for name in ("mat900", "mat10000"):
         mats[name] = ct.load_mm_sparse_matrix(
             os.path.join(ROOT, "data", f"{name}.mtx"))
@@ -808,6 +869,7 @@ def reference_solves(cfg, dev):
                         and dx <= 1e-8):
                     raise RuntimeError(line + " — card and CPU disagree")
             print(line, flush=True)
+            its[name, dtype] = r.iters
     a = mats["mat10000"]
     b = np.ones(a.n)
     ps = ct.make_solver(a, cfg.replace(dtype="float32", tol=1e-4,
@@ -820,6 +882,7 @@ def reference_solves(cfg, dev):
           f" iterations", flush=True)
     if rr.status != ct.SolverStatus.CONVERGED or not true_rel <= 1e-6:
         raise RuntimeError(f"mat10000 refinement reached only {true_rel!r}")
+    return its
 
 
 def one_m_solve(ps, b, tag):
@@ -1603,6 +1666,29 @@ def random_system_solves(a, dev):
                                f" more than {FIRST_ITERATE_TOL}")
 
 
+def jacobi_random_status(a, dev):
+    """ROADMAP C9, reported and not gated: Jacobi (ELL, f64, tol 1e-6) on
+    the CLI's random system with the CLI's b and on
+    random_diag_nonzero_system(300, 0.9, seed=1) with b = ones, on the card
+    (cuBLAS's dot) beside the CPU.  The JAX package's CPU solves run to
+    MAXIT at 2000 on both; the port's CPU solves break down, where torch's
+    f64 dot lands on an exact 0 of a decayed ρ
+    (tests/test_torch_reference_faults.py)."""
+    cfg = ct.SolverConfig(maxit=2000, tol=1e-6, precond="jacobi")
+    small = problems.random_diag_nonzero_system(300, 0.9, seed=1)[0]
+    for tag, m, b in (
+            ("the CLI's random system", a,
+             problems.gen_rand_vector(a.n, 0.2, 1.0, 5.0, seed=1)),
+            ("random_diag_nonzero_system(300, 0.9, seed=1)", small,
+             np.ones(small.n))):
+        rd = ct.solve(m, b, cfg, format="ell", device=dev)
+        rc = ct.solve(m, b, cfg, format="ell", device="cpu")
+        print(f"5a C9, Jacobi on {tag}: card {rd.status.name} after"
+              f" {rd.iters} (residual {rd.residual!r}), cpu {rc.status.name}"
+              f" after {rc.iters}; the JAX package: MAXIT after 2000",
+              flush=True)
+
+
 def report_solve(tag, ps, r, b, a, extra=""):
     true_rel = float(np.linalg.norm(b - bs.host_matvec_f64(a, r.x))
                      / np.linalg.norm(b))
@@ -1781,9 +1867,9 @@ CLI_LINES = (("n", r"^n=(\d+),"), ("backend", r"backend=(\w+)$"),
              ("failed", r"^method failed: (\w+) after"))
 
 
-def cli_step(tag, argv, want_rc=0):
-    """One CLI run of path 6: its exit code checked, its lines read, the
-    launches it made counted; printed in one line."""
+def cli_step(tag, argv, want_rc=0, path="6"):
+    """One CLI run of path 6 (or ``path``): its exit code checked, its
+    lines read, the launches it made counted; printed in one line."""
     c0 = counts()
     t0 = time.perf_counter()
     rc, out, err = run_cli(argv)
@@ -1799,10 +1885,11 @@ def cli_step(tag, argv, want_rc=0):
                 int(m[1]) if key in ("n", "iters") else float(m[1]))
     shown = {k: s[k] for k, _ in CLI_LINES if k in s}
     words = " ".join(os.path.basename(a) for a in argv)
-    print(f"6{tag}: cli {words} -> rc {rc}, {shown}, {secs:.3f} s, launches"
-          f" {d}", flush=True)
+    print(f"{path}{tag}: cli {words} -> rc {rc}, {shown}, {secs:.3f} s,"
+          f" launches {d}", flush=True)
     if rc != want_rc:
-        raise RuntimeError(f"6{tag}: rc {rc}, want {want_rc}: {err.strip()}")
+        raise RuntimeError(f"{path}{tag}: rc {rc}, want {want_rc}:"
+                           f" {err.strip()}")
     return s
 
 
@@ -1946,12 +2033,8 @@ def cli_paths(tmp):
           flush=True)
     if rc not in (0, 2) or not status:
         raise RuntimeError(f"6i: rc {rc}: {err.strip()}")
-    # (j) the rejections of --devices
-    s = cli_step("j", ["-M", data["mat900"], "--devices", "2", "--precond",
-                       "jacobi", "--x64"], want_rc=1)
-    if "A11" not in s["err"]:
-        raise RuntimeError("6j: --devices without the distributed solver's"
-                           " message")
+    # (j) the rejection of --devices with exact ILU(0) (path 7 runs
+    # --devices)
     s = cli_step("j ilu0", ["-M", data["mat900"], "--devices", "2", "--x64"],
                  want_rc=1)
     if s["err"] != ("exact global ILU(0) does not distribute; use --precond"
@@ -1976,6 +2059,178 @@ def cli_subprocess():
         raise RuntimeError(f"6k: rc {p.returncode}: {p.stderr[-2000:]}")
     if sorted(os.listdir(ct_build.BUILD_DIR)) != built:
         raise RuntimeError("6k: the subprocess built a library")
+
+
+# ---------------------------------------------------------------------------
+# main path 7: the distributed solver ("xla" engine: stock torch ops) on N
+# row shards of the card
+# ---------------------------------------------------------------------------
+
+
+def dist_report(tag, ds, r, a, b, smi, peak=None):
+    """One distributed solve's line: status, iterations, dtAlg, ms/iter,
+    dt_setup, the true relative residual and, where given, ``(held,
+    peak)``: the device memory held before its setup and the peak above
+    that over its setup and solve; then the card (``smi``)."""
+    true_rel = float(np.linalg.norm(b - bs.host_matvec_f64(a, r.x))
+                     / np.linalg.norm(b))
+    mem = "" if peak is None else (
+        f", peak device memory {peak[1] / 2**30:.3f} GiB above the"
+        f" {peak[0] / 2**30:.3f} GiB held before")
+    print(f"7{tag}: {r.status.name} {r.iters} it, dtAlg {r.dt_alg * 1e3:.3f}"
+          f" ms ({r.dt_alg * 1e3 / max(r.iters, 1):.4f} ms/iter), dt_setup"
+          f" {ds.dt_setup:.3f} s, true relative residual {true_rel!r}{mem};"
+          f" {type(ds.part).__name__} shard_rows {ds.part.shard_rows}; {smi}",
+          flush=True)
+    if not np.isfinite(r.x).all():
+        raise RuntimeError(f"7{tag}: non-finite x")
+    return true_rel
+
+
+def dist_solve(tag, a, b, n, cfg, dev, smi, twice=False):
+    """make_dist_bicgstab on ``n`` shards of ``dev`` and one solve (with
+    ``twice``, a second one, which must give the same bits); returns
+    (solver, the last result, its true relative residual)."""
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ds = par.make_dist_bicgstab(a, par.make_mesh(n, device=dev), cfg,
+                                local_engine="xla")
+    r = ds.solve(b)
+    if twice:
+        dist_report(tag + " (first)", ds, r, a, b, smi)
+        r2 = ds.solve(b)
+        if r2.iters != r.iters or not np.array_equal(r2.x, r.x):
+            raise RuntimeError(f"7{tag}: two solves differ")
+        r = r2
+    return ds, r, dist_report(
+        tag, ds, r, a, b, smi,
+        (held, torch.cuda.max_memory_allocated(dev) - held))
+
+
+def dist_flagship(dev, it_3a, x_3a, smi):
+    """7a: the 10M grid, exact-factor Neumann k=3, f32, on 1, 2, 4 and 8
+    shards, solved twice (the second's ms/iter is the steady one), each
+    within DIST_10M_GATE of path 3 (a)'s one-device count, its true
+    relative residual within DIST_10M_TRUE_RES and its x within
+    DIST_10M_DX of path 3 (a)'s ``x_3a``; then refined to 1e-6 over 4
+    shards."""
+    a = ct.grid_laplacian(*FLAGSHIP)
+    b = np.ones(a.n)
+    its = {}
+    x_3a = np.asarray(x_3a, np.float64)
+    for n in DIST_SHARDS:
+        ds, r, true_rel = dist_solve(f"a N={n}", a, b, n, DIST_10M_CFG, dev,
+                                     smi, twice=True)
+        its[n] = r.iters
+        del ds
+        dx = float(np.linalg.norm(r.x - x_3a) / np.linalg.norm(x_3a))
+        print(f"7a N={n}: |x - x_3a|/|x_3a| {dx!r} (gate {DIST_10M_DX}),"
+              f" true relative residual {true_rel!r} (gate"
+              f" {DIST_10M_TRUE_RES}); {smi}", flush=True)
+        if r.status != ct.SolverStatus.CONVERGED \
+                or abs(r.iters - it_3a) > DIST_10M_GATE \
+                or not true_rel <= DIST_10M_TRUE_RES or not dx <= DIST_10M_DX:
+            raise RuntimeError(f"7a N={n}: {r.status.name} in {r.iters}"
+                               f" iterations, true residual {true_rel!r},"
+                               f" x off by {dx!r} (want CONVERGED within"
+                               f" ±{DIST_10M_GATE} of path 3 (a)'s {it_3a},"
+                               f" ≤ {DIST_10M_TRUE_RES}, ≤ {DIST_10M_DX})")
+    print(f"7a: iterations over N {its}, one device (path 3 (a),"
+          f" pallas_dia) {it_3a}, gate ±{DIST_10M_GATE}", flush=True)
+    rr = ct.solve_refined(a, b, DIST_10M_CFG.replace(tol=1e-6), 1e-4,
+                          mesh=par.make_mesh(4, device=dev))
+    true_rel = float(np.linalg.norm(b - bs.host_matvec_f64(a, rr.x))
+                     / np.linalg.norm(b - bs.host_matvec_f64(a, np.ones(a.n))))
+    print(f"7a refined over 4 shards: {rr.status.name}, true f64 relative"
+          f" residual {true_rel!r}, {rr.iters} inner iterations, dtAlg"
+          f" {rr.dt_alg * 1e3:.3f} ms, setup {rr.dt_setup:.3f} s; {smi}",
+          flush=True)
+    if rr.status != ct.SolverStatus.CONVERGED or not true_rel <= 1e-6:
+        raise RuntimeError(f"7a: refinement over 4 shards reached only"
+                           f" {true_rel!r}")
+
+
+def dist_one_m(dev, smi):
+    """7b: the 1M grid in f64, no preconditioner and Jacobi, on 4 shards
+    against the one-device solve on the unpadded DIA operator (stock
+    torch, so that no kernel of this repository runs in path 7)."""
+    a = ct.grid_laplacian(*ONE_M)
+    b = np.ones(a.n)
+    for precond in ("none", "jacobi"):
+        cfg = DIST_1M_CFG.replace(precond=precond)
+        ds, r, rel = dist_solve(f"b {precond} N=4", a, b, 4, cfg, dev, smi)
+        del ds
+        r1 = ct.solve(a, b, cfg, format="dia", device=dev)
+        dx = float(np.linalg.norm(r.x - r1.x) / np.linalg.norm(r1.x))
+        print(f"7b {precond}: one device (format dia) {r1.status.name}"
+              f" {r1.iters} it ({r1.dt_alg * 1e3 / max(r1.iters, 1):.4f}"
+              f" ms/iter); |x diff|/|x| {dx!r}; {smi}", flush=True)
+        if not (r.converged and r1.converged and rel <= 1e-6
+                and abs(r.iters - r1.iters)
+                <= max(DIST_1M_SLACK, DIST_1M_REL * r1.iters)
+                and dx <= 1e-6):
+            raise RuntimeError(f"7b {precond}: the 4-shard solve and the"
+                               f" one-device solve disagree")
+
+
+def dist_block_jacobi(dev, it_ilu, smi):
+    """7c: block-Jacobi ILU(0) on mat10000, f64: one shard within ±1 of
+    path 2's global ILU(0) count, 2, 4 and 8 shards reported; the 316²
+    grid on 8 shards."""
+    a = ct.load_mm_sparse_matrix(os.path.join(ROOT, "data", "mat10000.mtx"))
+    b = np.ones(a.n)
+    for n in DIST_SHARDS:
+        ds, r, rel = dist_solve(f"c mat10000 N={n}", a, b, n, DIST_BJ_CFG,
+                                dev, smi)
+        del ds
+        if not (r.converged and rel <= 1e-6):
+            raise RuntimeError(f"7c mat10000 N={n}: {r.status.name}")
+        if n == 1 and abs(r.iters - it_ilu) > 1:
+            raise RuntimeError(f"7c: one shard took {r.iters} iterations,"
+                               f" global ILU(0) {it_ilu} (want ±1)")
+    g = ct.grid_laplacian(BLOCKED_SIDE, BLOCKED_SIDE)
+    ds, r, rel = dist_solve(f"c {BLOCKED_SIDE}^2 N=8", g, np.ones(g.n), 8,
+                            DIST_BJ_CFG, dev, smi)
+    if not (r.converged and rel <= 1e-6):
+        raise RuntimeError(f"7c {BLOCKED_SIDE}^2: {r.status.name}")
+
+
+def dist_allgather(dev, smi):
+    """7d: the shuffled 316² grid, Jacobi, 4 shards: no band, so an ELL
+    partition and an all-gather of x, in DIST_ALLGATHER_ITERS."""
+    a = shuffled_laplacian(BLOCKED_SIDE)
+    b = np.ones(a.n)
+    ds, r, rel = dist_solve("d N=4", a, b, 4, DIST_1M_CFG.replace(
+        precond="jacobi", maxit=5000), dev, smi)
+    if not (isinstance(ds.part, par_partition.RowPartitionedELL)
+            and r.converged and rel <= 1e-6 and DIST_ALLGATHER_ITERS[0]
+            <= r.iters <= DIST_ALLGATHER_ITERS[1]):
+        raise RuntimeError(f"7d: want an ELL partition, CONVERGED in"
+                           f" {DIST_ALLGATHER_ITERS}, true residual <= 1e-6")
+
+
+def dist_cli():
+    """7e: the JAX CLI's own distributed example on the card, refined
+    Jacobi, and the rejections (ilu0: the JAX CLI's message; --format and
+    --reorder: the port's, ROADMAP C11)."""
+    m10k = ["-M", os.path.join(ROOT, "data", "mat10000.mtx"), "--devices",
+            "4"]
+    for tag, extra in (("e", ["--precond", "none", "--x64"]),
+                       ("e refine", ["--precond", "jacobi", "--refine"])):
+        s = cli_step(tag, m10k + extra, path="7")
+        if not (s["success"] and s.get("backend") == "cuda"
+                and s.get("rel_true", np.inf) <= 1e-6):
+            raise RuntimeError(f"7{tag}: want success on the card with a"
+                               f" true relative residual <= 1e-6")
+    s = cli_step("e ilu0", m10k + ["--precond", "ilu0"], want_rc=1, path="7")
+    if s["err"] != ("exact global ILU(0) does not distribute; use --precond"
+                    " bjacobi_ilu0 (per-shard ILU) or jacobi\n"):
+        raise RuntimeError("7e: not the JAX CLI's ILU(0) message")
+    for flag in (["--format", "csr"], ["--reorder", "rcm"]):
+        s = cli_step("e " + flag[0], m10k + ["--precond", "jacobi"] + flag,
+                     want_rc=1, path="7")
+        if "do not reach the distributed solver" not in s["err"]:
+            raise RuntimeError(f"7e: {flag[0]} with --devices not rejected")
 
 
 def main():
@@ -2195,7 +2450,7 @@ def main():
     # ---- main path 2: the reference's default solve, exact ILU(0)
     reset_counts()
     with phase(timer, "exact ILU(0) reference solves"):
-        reference_solves(cfg_ilu, dev)
+        ilu_its = reference_solves(cfg_ilu, dev)
     with phase(timer, "1M-row exact ILU(0) solve"):
         b1 = np.ones(a1m.n)
         r64 = one_m_solve(ps1m64, b1, "f64")
@@ -2252,11 +2507,11 @@ def main():
         entry_solves()
     with phase(timer, "10M exact-factor Neumann solves"):
         b = np.ones(a.n)
-        its = {}
+        its, xs = {}, {}
         for tag, ps_n in (("pallas_dia", ps_dia), ("stencil", ps_st)):
             for _ in range(2):
                 r = neumann_10m_solve(ps_n, b, tag)
-            its[tag] = r.iters
+            its[tag], xs[tag] = r.iters, r.x
             print(f"10M {tag} (second solve): dt_setup {ps_n.dt_setup:.3f}"
                   f" s, dtAlg {r.dt_alg * 1e3:.3f} ms,"
                   f" {r.dt_alg * 1e3 / r.iters:.4f} ms/iter, {r.iters}"
@@ -2306,6 +2561,7 @@ def main():
             for dt in (torch.float32, torch.float64):
                 operator_check(a, fmt, dt, "random system", table)
         random_system_solves(a, dev)
+        jacobi_random_status(a, dev)
     with phase(timer, "5b shuffled 1M"):
         shuffled_1m(shuffled_laplacian(SHUFFLED_SIDE), dev, table)
     got = counts()
@@ -2332,7 +2588,26 @@ def main():
     with phase(timer, "6k the CLI in a subprocess"):
         cli_subprocess()
 
-    paths = (path1, path2, path3, path4a, path4b, path5, path6)
+    # ---- main path 7: the distributed solver on N row shards of the card
+    reset_counts()
+    with phase(timer, "7a distributed 10M exact-factor Neumann"):
+        dist_flagship(dev, its["pallas_dia"], xs["pallas_dia"], smi)
+    with phase(timer, "7b distributed 1M h-form and Jacobi"):
+        dist_one_m(dev, smi)
+    with phase(timer, "7c distributed block-Jacobi ILU(0)"):
+        dist_block_jacobi(dev, ilu_its["mat10000", "float64"], smi)
+    with phase(timer, "7d distributed all-gather"):
+        dist_allgather(dev, smi)
+    with phase(timer, "7e the CLI with --devices"):
+        dist_cli()
+    path7 = counts()
+    print(f"main path 7 (distributed, xla engine) launches: {path7}",
+          flush=True)
+    if any(path7.values()):
+        raise RuntimeError("path 7 launched a kernel of this repository: the"
+                           " xla engine runs stock torch ops only")
+
+    paths = (path1, path2, path3, path4a, path4b, path5, path6, path7)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(p[k] for p in paths), **stats[k]}

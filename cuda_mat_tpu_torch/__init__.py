@@ -19,7 +19,9 @@ matrix, f64 host refinement, the per-iteration ``debug=True`` prints, the
 command line (``python -m cuda_mat_tpu_torch.cli``), the generator
 (``python -m cuda_mat_tpu_torch.generator``), the host utilities
 (checkpoints, norms, dense QR, the OMP text formats) and the numpy CPU
-oracles.  Not yet: the distributed solver.  The hot kernels are
+oracles; and the row-partitioned distributed solver
+(:mod:`cuda_mat_tpu_torch.parallel`, on stock torch ops; its kernel
+engines are not yet ported).  The hot kernels are
 hand-written for Hopper (``csrc/*.cu``, built with nvcc at first use); on
 CPU tensors they run as plain PyTorch.
 """

@@ -18,15 +18,20 @@ Flags whose JAX meaning has no torch counterpart are mapped, never dropped:
 unless ``--platform cpu`` is given), ``--x64`` (float64 as the default
 ``--dtype``; nothing global is set), ``--debug-nans`` (FloatingPointError at
 the first non-finite residual), ``--profile DIR`` (a ``torch.profiler``
-Chrome trace of the solve phase in DIR) and ``--devices N`` (rejected: the
-distributed solver is not ported yet, ROADMAP A11).  ``--format`` reaches
-the solver, including the inner solver of ``--refine``.
+Chrome trace of the solve phase in DIR) and ``--devices N`` (the
+distributed solver over a mesh of N row shards of the ``--platform``
+device).  ``--format`` reaches the solver, including the inner solver of
+``--refine`` (the JAX CLI drops it, ROADMAP C8).  With ``--devices``,
+``--format`` and ``--reorder`` have no path and exit 1 (the JAX CLI drops
+them silently, ROADMAP C11).
 
 Usage::
 
     python -m cuda_mat_tpu_torch.cli -M data/mat10000.mtx -D
     python -m cuda_mat_tpu_torch.cli -M data/mat10000.mtx --platform cpu --x64
     python -m cuda_mat_tpu_torch.cli -N 4000 -R 0.999 --precond jacobi
+    python -m cuda_mat_tpu_torch.cli -M data/mat10000.mtx --devices 4 \
+        --precond none --x64
 """
 
 from __future__ import annotations
@@ -91,8 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bandwidth-reducing reordering (RCM) before the "
                         "solve; x is scattered back to the input ordering")
     p.add_argument("--devices", type=int, default=None,
-                   help="row-partition across N devices (not ported yet:"
-                        " rejected)")
+                   help="row-partition across N shards of the device"
+                        " (distributed solver)")
     p.add_argument("--refine", action="store_true",
                    help="mixed-precision iterative refinement: f32 device "
                         "solves + f64 host residual correction")
@@ -231,10 +236,23 @@ def main(argv=None) -> int:
                       "--precond bjacobi_ilu0 (per-shard ILU) or jacobi",
                       file=sys.stderr)
                 return 1
-            print("--devices: the distributed solver is not ported to "
-                  "cuda_mat_tpu_torch yet (ROADMAP A11); drop --devices",
-                  file=sys.stderr)
-            return 1
+            if args.format is not None or args.reorder != "none":
+                # the JAX CLI drops both here without a word (ROADMAP C11)
+                print("--format/--reorder do not reach the distributed "
+                      "solver (row partitions, no reordering); drop them or "
+                      "--devices", file=sys.stderr)
+                return 1
+            from cuda_mat_tpu_torch.parallel import (dist_bicgstab,
+                                                     make_mesh)
+
+            mesh = make_mesh(args.devices, device=device)
+            if args.refine:
+                from cuda_mat_tpu_torch.solvers.refine import solve_refined
+
+                # f32 inner solves over the mesh, f64 host residual restarts
+                res = solve_refined(a, b, cfg, x0=x0, mesh=mesh)
+            else:
+                res = dist_bicgstab(a, b, mesh, cfg, x0=x0)
         elif args.solver == "bicg":
             res = bicg(a, b, cfg, format=args.format, device=device)
         elif args.refine:

@@ -124,3 +124,33 @@ def dia_operator_from_numpy(fields: dict, device) -> PallasDIAOperator:
         offsets=tuple(int(o) for o in fields["offsets"]),
         n=int(fields["n"]), block=int(fields["block"]),
         sub=int(fields["sub"]), vec_dtype=dtype, device=device)
+
+
+def partition_from_numpy(fields: dict):
+    """``fields``: a JAX row partition's fields (``dataclasses.asdict`` of
+    a ``RowPartitionedBanded``, ``RowPartitionedStencil`` or
+    ``RowPartitionedELL``); returns the port's partition of the same kind,
+    told apart by its fields, with the same arrays.  A partition built once
+    can so feed both packages' distributed solvers."""
+    from cuda_mat_tpu_torch.parallel.partition import (RowPartitionedBanded,
+                                                       RowPartitionedELL,
+                                                       RowPartitionedStencil)
+
+    for cls in (RowPartitionedStencil, RowPartitionedBanded,
+                RowPartitionedELL):
+        names = {f.name for f in dataclasses.fields(cls)}
+        if names == set(fields):
+            break
+    else:
+        raise ValueError(f"no row partition has the fields {sorted(fields)}")
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = fields[f.name]
+        if isinstance(v, np.ndarray):
+            kw[f.name] = np.array(v)
+        elif f.name in ("offsets", "terms", "strided_terms"):
+            kw[f.name] = tuple(tuple(t) if isinstance(t, (tuple, list))
+                               else int(t) for t in v)
+        else:
+            kw[f.name] = int(v)
+    return cls(**kw)

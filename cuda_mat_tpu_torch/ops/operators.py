@@ -265,39 +265,54 @@ def is_padded(op) -> bool:
 
 # make_operator's rule, the JAX package's defaults: DIA for at most
 # DIA_MAX_DIAGS distinct diagonals holding nnz ≥ DIA_MIN_DENSITY·ndiag·n,
-# else ELL when max_row·n ≤ ELL_MAX_EXPAND·nnz, else CSR
+# else ELL when max_row·n ≤ ELL_MAX_EXPAND·nnz, else CSR; the JAX TPU
+# branch's DENSE_BUDGET_BYTES is taken at its default only
 DIA_MAX_DIAGS = 16
 DIA_MIN_DENSITY = 0.4
 ELL_MAX_EXPAND = 4.0
+DENSE_BUDGET_BYTES = 2 << 30
 
 
-def is_banded(csr) -> bool:
-    """Whether ``csr`` is banded by the DIA rule: at most
-    ``DIA_MAX_DIAGS`` distinct diagonals holding nnz ≥
-    ``DIA_MIN_DENSITY``·ndiag·n.  :func:`make_operator` then picks DIA, and
-    the solver the banded kernels."""
+def is_banded(csr, max_diags: int = DIA_MAX_DIAGS,
+              min_dia_density: float = DIA_MIN_DENSITY) -> bool:
+    """Whether ``csr`` is banded by the DIA rule: at most ``max_diags``
+    distinct diagonals holding nnz ≥ ``min_dia_density``·ndiag·n.
+    :func:`make_operator` then picks DIA, and the solver the banded
+    kernels."""
     coo = csr.to_coo()
     ndiag = np.unique(coo.cols.astype(np.int64)
                       - coo.rows.astype(np.int64)).shape[0]
-    return 0 < ndiag <= DIA_MAX_DIAGS and \
-        csr.nnz >= DIA_MIN_DENSITY * ndiag * csr.n
+    return 0 < ndiag <= max_diags and \
+        csr.nnz >= min_dia_density * ndiag * csr.n
 
 
 def make_operator(csr, dtype=torch.float64, format: Optional[str] = None,
-                  *, device="cuda"):
-    """The unpadded operator of a host CSR matrix on ``device``.
+                  max_diags: int = DIA_MAX_DIAGS,
+                  min_dia_density: float = DIA_MIN_DENSITY,
+                  max_ell_expand: float = ELL_MAX_EXPAND,
+                  dense_budget_bytes: int = DENSE_BUDGET_BYTES, *,
+                  device="cuda"):
+    """The unpadded operator of a host CSR matrix on ``device``
+    (cuda_mat_tpu/ops/operators.py:221-262).
 
     ``format`` forces one of ``"csr"``, ``"ell"``, ``"dia"``, ``"bell"``
-    and ``"dense"``; by default DIA where :func:`is_banded`, else ELL when
-    max_row·n ≤ ``ELL_MAX_EXPAND``·nnz, else CSR (the JAX package's rule off
-    the TPU).  The JAX signature's thresholds are the module's constants
-    here, and its ``dense_budget_bytes``, read only by the TPU branch, is
-    not taken."""
+    and ``"dense"``; by default DIA where :func:`is_banded` with
+    ``max_diags`` and ``min_dia_density``, else ELL when max_row·n ≤
+    ``max_ell_expand``·nnz, else CSR (the JAX package's rule off the TPU;
+    the defaults are its own).  ``dense_budget_bytes`` is taken for the
+    JAX signature only: the JAX package reads it in its TPU branch alone,
+    which turns a general matrix dense to feed the MXU, so any other
+    value raises ValueError rather than being dropped."""
+    if dense_budget_bytes != DENSE_BUDGET_BYTES:
+        raise ValueError(
+            f"dense_budget_bytes={dense_budget_bytes}: only the JAX"
+            " package's TPU branch (a general matrix turned dense for the"
+            " MXU) reads it, and the port has no such branch")
     if format is None:
         max_row = int(csr.row_lengths.max()) if csr.n else 1
-        if is_banded(csr):
+        if is_banded(csr, max_diags, min_dia_density):
             format = "dia"
-        elif csr.n and max_row * csr.n <= ELL_MAX_EXPAND * max(csr.nnz, 1):
+        elif csr.n and max_row * csr.n <= max_ell_expand * max(csr.nnz, 1):
             format = "ell"
         else:
             format = "csr"

@@ -679,6 +679,22 @@ class ConstStencilOperator:
     def r(self) -> int:
         return self.n // self.c_grid
 
+    @property
+    def nnz(self) -> int:
+        """Nonzeros of the matrix the stencil stands for (terms whose
+        neighbour leaves the grid count none), as the JAX operator's
+        (cuda_mat_tpu/ops/pallas_stencil.py:884)."""
+        nz = 0
+        for off, dc, _ in self.terms:
+            lo, hi = max(0, -off), min(self.n, self.n - off)
+            cnt = hi - lo
+            if dc:
+                gj = np.arange(lo, hi, dtype=np.int64) % self.c_grid
+                cnt = int(np.count_nonzero((gj + dc >= 0)
+                                           & (gj + dc < self.c_grid)))
+            nz += cnt
+        return nz
+
     @classmethod
     def from_dia(cls, dia, dtype=torch.float32, device="cuda",
                  block_target: int = 262144, min_sub: int = 0

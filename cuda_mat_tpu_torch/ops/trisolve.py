@@ -18,6 +18,13 @@ The JAX package runs the loop in XLA, so here it is stock torch ops on the
 arrays' device: a Python loop over the blocks, each step a gather, the row
 sums, one GEMV (full precision: no TF32) written into y — five launches a
 step, so on a card the sweep is paced by the host.
+
+The arrays may carry a leading shard axis (the distributed block-Jacobi
+ILU(0), :mod:`cuda_mat_tpu_torch.parallel.dist_precond`): then each shard
+solves its own factor on its ``(S, n)`` row of the vectors, ``cols`` are
+local row indices, and step b of every shard is one batched step (a
+gather, the row sums and one batched GEMV), so a sweep takes the same
+launches whatever S is.
 """
 
 from __future__ import annotations
@@ -69,12 +76,13 @@ class BlockTriangularSolver:
     over true-n vectors on the arrays' device, by the blocked recurrence of
     the module docstring."""
 
-    w_lo: torch.Tensor     # [nb, B, B] inverse of unit-lower diagonal blocks
-    vals_lo: torch.Tensor  # [nb, B, Klo]
-    cols_lo: torch.Tensor  # int32[nb, B, Klo] (global row indices)
-    w_up: torch.Tensor     # [nb, B, B] inverse of upper diagonal blocks
-    vals_up: torch.Tensor  # [nb, B, Kup]
-    cols_up: torch.Tensor  # int32[nb, B, Kup]
+    w_lo: torch.Tensor     # [(S,) nb, B, B] inverse of unit-lower diagonal blocks
+    vals_lo: torch.Tensor  # [(S,) nb, B, Klo]
+    cols_lo: torch.Tensor  # int32[nb, B, Klo] (global row indices) or
+    #                        int64[S, nb, B, Klo] (each shard's own rows)
+    w_up: torch.Tensor     # [(S,) nb, B, B] inverse of upper diagonal blocks
+    vals_up: torch.Tensor  # [(S,) nb, B, Kup]
+    cols_up: torch.Tensor  # as cols_lo
     n: int                 # true dimension
     block: int
 
@@ -94,10 +102,12 @@ class BlockTriangularSolver:
 
     @property
     def nb(self) -> int:
-        return self.w_lo.shape[0]
+        return self.w_lo.shape[-3]
 
     def _sweep(self, f: torch.Tensor, w, vals, cols,
                forward: bool) -> torch.Tensor:
+        if w.dim() == 4:
+            return self._sweep_shards(f, w, vals, cols, forward)
         nb, block = self.nb, self.block
         fp = torch.zeros(nb * block, dtype=w.dtype, device=w.device)
         fp[: self.n] = f
@@ -109,6 +119,20 @@ class BlockTriangularSolver:
             rhs = fp[s:s + block] - (vals[b] * gathered).sum(1)
             torch.mv(w[b], rhs, out=y[s:s + block])
         return y[: self.n]
+
+    def _sweep_shards(self, f: torch.Tensor, w, vals, cols,
+                      forward: bool) -> torch.Tensor:
+        shards, nb, block, k = w.shape[0], self.nb, self.block, cols.shape[-1]
+        fp = f.new_zeros((shards, nb * block))
+        fp[:, : self.n] = f
+        y = torch.zeros_like(fp)
+        for b in (range(nb) if forward else range(nb - 1, -1, -1)):
+            s = b * block
+            gathered = torch.gather(y, 1, cols[:, b].reshape(shards, -1))
+            rhs = fp[:, s:s + block] - (
+                vals[:, b] * gathered.view(shards, block, k)).sum(2)
+            y[:, s:s + block] = torch.bmm(w[:, b], rhs.unsqueeze(2))[..., 0]
+        return y[:, : self.n]
 
     def solve_lower(self, f: torch.Tensor) -> torch.Tensor:
         """L y = f with the unit-diagonal lower factor (forward sweep)."""

@@ -33,7 +33,8 @@ def bicg_core(matvec, matvec_t, b: torch.Tensor, eps: float, maxit: int,
               debug: bool = False):
     """The BiCG loop from x0 = ones.  Returns ``(x, status, iters, check,
     norm, hist)`` as device tensors: ``status`` 1 converged, 0 not;
-    ``check`` the last relative residual tested; ``hist`` (maxit,) the
+    ``check`` the last relative residual tested (with no step, the
+    entering one); ``hist`` (maxit,) the
     checks, −1 where none ran (``debug``: see
     :class:`~cuda_mat_tpu_torch.solvers.bicgstab.LoopWatch`)."""
     dot = torch.dot
@@ -45,7 +46,9 @@ def bicg_core(matvec, matvec_t, b: torch.Tensor, eps: float, maxit: int,
     bir, p, bip = r, r, r
     i_t = torch.zeros((), dtype=torch.int32, device=b.device)
     status_t = torch.zeros_like(i_t)
-    check = torch.tensor(float("inf"), dtype=b.dtype, device=b.device)
+    # the entering relative residual, which the first step tests; with
+    # maxit = 0 it is the result's, as the BiCGSTAB loops return theirs
+    check = torch.sqrt(dot(r, r)) / norm
     hist = torch.full((maxit,), -1.0, dtype=b.dtype, device=b.device)
     status, i = 0, 0
     while i < maxit and status == 0:

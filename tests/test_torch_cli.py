@@ -9,9 +9,11 @@ tolerance, ``-P``'s printed x to 1e-6, and the error messages, which must
 be identical.  Cases with ``--format`` hold the port's CLI against the JAX
 library's ``solve(a, b, cfg, format=...)``, because the JAX CLI drops the
 flag (ROADMAP C8, recorded by ``test_jax_cli_drops_format_the_port_honours
-_it``).  The port's own rejections (``--devices``, no card) and flags with
-no JAX counterpart here (``--profile``, ``--debug-nans``) have tests of
-their own below.
+_it``).  ``--devices`` runs the distributed solver in both CLIs, held
+against each other with the distributed solves' slack (±5); the port's own
+rejections (``--format``/``--reorder`` with ``--devices``, ROADMAP C11; no
+card) and flags with no JAX counterpart here (``--profile``,
+``--debug-nans``) have tests of their own below.
 """
 
 import os
@@ -242,16 +244,43 @@ def test_checkpoint_and_resume_match_jax(tmp_path, capsys):
     assert abs(s_t["iters"] - s_j["iters"]) <= HFORM
 
 
-@pytest.mark.parametrize("precond", ["jacobi", "bjacobi_ilu0"])
+DIST = 5        # iteration slack of the distributed solves (test_parallel)
+
+
+@pytest.mark.parametrize("precond", ["none", "jacobi", "bjacobi_ilu0"])
 def test_devices_rejected_until_the_distributed_solver(precond, capsys):
-    """``--devices`` with any preconditioner but ilu0 (whose message is
-    the JAX CLI's, a CLI_CASES case) exits 1 with the port's own message;
-    it never runs a single-device solve in its place."""
-    rc, out, err = _run(port_main, ["-M", MAT900, "--devices", "4",
-                                    "--precond", precond, "--platform",
-                                    "cpu"] + F64, capsys)
+    """``--devices 4`` ran nothing until the distributed solver was
+    ported; now it runs it, as the JAX CLI does: the same exit code and
+    printed lines, iterations within ±5 (the distributed solves' slack,
+    tests/test_parallel.py), both under the tolerance."""
+    args = ["-M", MAT900, "--devices", "4", "--precond", precond,
+            "--platform", "cpu"] + F64
+    rc_j, out_j, err_j = _run(jax_main, args, capsys)
+    rc_t, out_t, err_t = _run(port_main, args, capsys)
+    assert rc_t == rc_j == 0, (err_j, err_t)
+    s_j, s_t = _summary(out_j), _summary(out_t)
+    assert s_t["lines"] == s_j["lines"]
+    assert "success" in s_t["lines"]
+    assert abs(s_t["iters"] - s_j["iters"]) <= DIST
+    assert s_t["rel"] < 1e-6 and s_j["rel"] < 1e-6
+
+
+@pytest.mark.parametrize("flag", [["--format", "csr"],
+                                  ["--reorder", "rcm"]])
+def test_jax_cli_drops_format_and_reorder_with_devices(flag, capsys,
+                                                       monkeypatch):
+    """ROADMAP C11: with ``--devices`` the JAX CLI parses ``--format`` and
+    ``--reorder`` and passes neither on (its distributed solve prints what
+    it prints without them); the port's CLI exits 1 and says so."""
+    base = ["-M", MAT900, "--devices", "4", "--precond", "jacobi",
+            "--platform", "cpu"] + F64
+    rc_p, plain, _ = _run(jax_main, base, capsys)
+    rc_f, flagged, _ = _run(jax_main, base + flag, capsys)
+    assert rc_p == rc_f == 0
+    assert _summary(flagged) == _summary(plain)
+    rc, out, err = _run(port_main, base + flag, capsys)
     assert rc == 1 and "success" not in out
-    assert "distributed solver is not ported" in err and "A11" in err
+    assert "--format/--reorder do not reach the distributed solver" in err
 
 
 def test_bjacobi_ilu0_without_devices_raises_as_jax(capsys):

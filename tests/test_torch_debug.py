@@ -28,7 +28,7 @@ from threadpoolctl import threadpool_limits
 import cuda_mat_tpu as cm
 
 import cuda_mat_tpu_torch as ct
-from cuda_mat_tpu_torch.solvers import bicgstab as tbs
+from cuda_mat_tpu_torch.solvers.bicgstab import debug_nans
 
 torch.set_num_threads(1)
 
@@ -142,10 +142,10 @@ def test_debug_nans_raises_where_the_loop_reports_breakdown():
     r = ct.solve(a, b, ct.SolverConfig(), device="cpu")
     assert r.status == ct.SolverStatus.BREAKDOWN and r.iters == 1
     with pytest.raises(FloatingPointError, match="at iteration 0"):
-        with tbs.debug_nans():
+        with debug_nans():
             ct.solve(a, b, ct.SolverConfig(), device="cpu")
-    with tbs.debug_nans():
-        with tbs.debug_nans(False):
+    with debug_nans():
+        with debug_nans(False):
             r2 = ct.solve(a, b, ct.SolverConfig(), device="cpu")
     assert r2.status == ct.SolverStatus.BREAKDOWN
     assert ct.solve(a, b, ct.SolverConfig(), device="cpu").iters == 1
