@@ -124,20 +124,31 @@ script exits non-zero:
    B4's kernels; (i) the default random system; (j) --devices with exact
    ILU(0) rejected with the JAX CLI's message; (k) one run of python -m
    cuda_mat_tpu_torch.cli in a subprocess, which builds nothing;
-15. main path 7, the distributed solver (cuda_mat_tpu_torch.parallel, the
-   JAX package's "xla" engine: stock torch ops) on N row shards of the
-   card: (a) the 10M grid, exact-factor Neumann k=3, f32, tol 1e-4, on
-   N = 1, 2, 4, 8 (status, iterations, ms/iter, dt_setup, peak device
-   memory), each within DIST_10M_GATE of path 3 (a)'s one-device count,
-   then solve_refined over 4 shards to 1e-6; (b) the 1M grid in f64,
-   no preconditioner and Jacobi, 4 shards, against the one-device solve
-   on the unpadded DIA operator; (c) block-Jacobi ILU(0) on mat10000 on
-   1 (within ±1 of path 2's global ILU(0) count), 2, 4, 8 shards and on
-   the 316² grid on 8; (d) Jacobi on the shuffled 316² grid, 4 shards: an
-   ELL partition and an all-gather of x; (e) the CLI: -M mat10000.mtx
-   --devices 4 --precond none --x64 (the JAX CLI's own example), --precond
-   jacobi --refine, and the rejections of ilu0, --format and --reorder;
-   the launch counts show no kernel B1-B7 in path 7.
+15. main path 7, the distributed solver (cuda_mat_tpu_torch.parallel) on N
+   row shards of the card.  (a)-(d) on the JAX package's "xla" engine
+   (stock torch ops; the launch counts show no kernel B1-B7 there): (a)
+   the 10M grid, exact-factor Neumann k=3, f32, tol 1e-4, on N = 1, 2, 4,
+   8 (status, iterations, ms/iter, dt_setup, peak device memory), each
+   within DIST_10M_GATE of path 3 (a)'s one-device count, then
+   solve_refined over 4 shards to 1e-6; (b) the 1M grid in f64, no
+   preconditioner and Jacobi, 4 shards, against the one-device solve on
+   the unpadded DIA operator; (c) block-Jacobi ILU(0) on mat10000 on 1
+   (within ±1 of path 2's global ILU(0) count), 2, 4, 8 shards and on the
+   316² grid on 8; (d) Jacobi on the shuffled 316² grid, 4 shards: an ELL
+   partition and an all-gather of x.  (e)-(h) on the kernel engines, one
+   launch a matvec or msolve for all of a process's shards: (f) the
+   flagship's configuration on the "stencil" engine (B1 and the fused
+   msolve B2 a shard) on N = 1, 2, 4, 8 and with fuse_blas1 (B5) on 8,
+   each within DIST_STENCIL_GATE of path 1's count, its true residual and
+   x against path 1's; (g) (a)'s configuration on the "pallas" engine (B3
+   a shard) with (a)'s gates, and (b)'s solves through B3 in f64; (h)
+   block-Jacobi on mat10000 over 8 shards on the engine "auto" picks
+   (pallas); (e) the CLI: -M mat10000.mtx --devices 4 --precond none --x64
+   (the JAX CLI's own example) and --precond jacobi --refine on the engine
+   "auto" picks, the rejections of ilu0, --format and --reorder.  Each run
+   prints its launches an iteration (the same at every N).  Then, outside
+   the count windows, each kernel a shard at N = 8 (bases past 0) against
+   its twin, bit for bit, its device time beside one device's.
 
 Times: a kernel's ``ms`` is the median time between CUDA events around one
 call of its front end, the host's work in between included (as twins and
@@ -178,6 +189,7 @@ from cuda_mat_tpu_torch.ops import stencil as st
 from cuda_mat_tpu_torch.ops import stencil2d as t2d
 from cuda_mat_tpu_torch.ops import trisolve as tri_mod
 from cuda_mat_tpu_torch import parallel as par
+from cuda_mat_tpu_torch.parallel import dist_solver as par_solver
 from cuda_mat_tpu_torch.parallel import partition as par_partition
 from cuda_mat_tpu_torch.precond import preconditioners as pre_mod
 from cuda_mat_tpu_torch.utils import build as ct_build
@@ -328,6 +340,26 @@ DIST_1M_REL = 0.10
 DIST_BJ_CFG = ct.SolverConfig(maxit=2000, tol=1e-6, dtype="float64",
                               precond="bjacobi_ilu0", trisolve_block=128)
 DIST_ALLGATHER_ITERS = (340, 420)
+# path 7 (f)-(h), the kernel engines.  (f) the flagship's configuration on
+# the "stencil" engine: a count moves with N here as in (a); over N = 1, 2,
+# 4, 8 the JAX package's CPU counts (its interpret kernels) lie up to 5 /
+# 9 / 24 from its one-device count at R = 500 / 1000 / 2000, the port's up
+# to 4 / 13 / 6 (tests/test_torch_parallel_scan.py stencil 500 1000 2000),
+# so the gate is the widest of them, beside path 1's ITERS; the answer is
+# held by DIST_10M_TRUE_RES and DIST_10M_DX against path 1's x
+DIST_STENCIL_GATE = 24
+# (g)'s 1M f64 solves on B3 a shard: the count of this h-form is a chaotic
+# function of rounding.  Over b = ones and 5 one-ulp changes of it the JAX
+# package's 4-shard count lies up to 81 from its one-device count (364..447
+# one device, 349..398 on 4 shards; the port's "pallas" engine on the CPU
+# 341..427, its one device 373..422: tests/test_torch_parallel_scan.py
+# hform-ulp 10000 6), wider than (b)'s 10%, which one b set; so (g) gates
+# that distance by 81, and the answer by (b)'s residual and x gates.
+# Jacobi's diagonal is one constant: the same Krylov process, the same gate
+DIST_1M_PALLAS_GATE = 81
+# the launches of a solve: B1 and B2 (or B5) 2 an iteration, B3 on exact
+# factors (g, k = 3) 2 + 2·2·(k - 1) = 10, whatever N is
+DIST_B3_PER_ITER = 10
 
 
 @contextlib.contextmanager
@@ -2080,28 +2112,34 @@ def dist_report(tag, ds, r, a, b, smi, peak=None):
     print(f"7{tag}: {r.status.name} {r.iters} it, dtAlg {r.dt_alg * 1e3:.3f}"
           f" ms ({r.dt_alg * 1e3 / max(r.iters, 1):.4f} ms/iter), dt_setup"
           f" {ds.dt_setup:.3f} s, true relative residual {true_rel!r}{mem};"
-          f" {type(ds.part).__name__} shard_rows {ds.part.shard_rows}; {smi}",
+          f" {type(ds.part).__name__} shard_rows {ds.part.shard_rows},"
+          f" engine {ds.engine}, msolve {ds.msolve_mode}; {smi}",
           flush=True)
     if not np.isfinite(r.x).all():
         raise RuntimeError(f"7{tag}: non-finite x")
     return true_rel
 
 
-def dist_solve(tag, a, b, n, cfg, dev, smi, twice=False):
-    """make_dist_bicgstab on ``n`` shards of ``dev`` and one solve (with
-    ``twice``, a second one, which must give the same bits); returns
-    (solver, the last result, its true relative residual)."""
+def dist_solve(tag, a, b, n, cfg, dev, smi, twice=False, engine="xla"):
+    """make_dist_bicgstab on ``n`` shards of ``dev`` with ``engine`` and one
+    solve (with ``twice``, a second one, which must give the same bits);
+    returns (solver, the last result, its true relative residual).  The
+    launches of the last solve, by kernel, are ``ds.launches``."""
     held = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ds = par.make_dist_bicgstab(a, par.make_mesh(n, device=dev), cfg,
-                                local_engine="xla")
+                                local_engine=engine)
+    c0 = counts()
     r = ds.solve(b)
     if twice:
         dist_report(tag + " (first)", ds, r, a, b, smi)
+        c0 = counts()
         r2 = ds.solve(b)
         if r2.iters != r.iters or not np.array_equal(r2.x, r.x):
             raise RuntimeError(f"7{tag}: two solves differ")
         r = r2
+    c1 = counts()
+    ds.launches = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
     return ds, r, dist_report(
         tag, ds, r, a, b, smi,
         (held, torch.cuda.max_memory_allocated(dev) - held))
@@ -2116,12 +2154,12 @@ def dist_flagship(dev, it_3a, x_3a, smi):
     shards."""
     a = ct.grid_laplacian(*FLAGSHIP)
     b = np.ones(a.n)
-    its = {}
+    its, ms = {}, {}
     x_3a = np.asarray(x_3a, np.float64)
     for n in DIST_SHARDS:
         ds, r, true_rel = dist_solve(f"a N={n}", a, b, n, DIST_10M_CFG, dev,
                                      smi, twice=True)
-        its[n] = r.iters
+        its[n], ms[n] = r.iters, r.dt_alg * 1e3 / r.iters
         del ds
         dx = float(np.linalg.norm(r.x - x_3a) / np.linalg.norm(x_3a))
         print(f"7a N={n}: |x - x_3a|/|x_3a| {dx!r} (gate {DIST_10M_DX}),"
@@ -2138,7 +2176,8 @@ def dist_flagship(dev, it_3a, x_3a, smi):
     print(f"7a: iterations over N {its}, one device (path 3 (a),"
           f" pallas_dia) {it_3a}, gate ±{DIST_10M_GATE}", flush=True)
     rr = ct.solve_refined(a, b, DIST_10M_CFG.replace(tol=1e-6), 1e-4,
-                          mesh=par.make_mesh(4, device=dev))
+                          mesh=par.make_mesh(4, device=dev),
+                          local_engine="xla")
     true_rel = float(np.linalg.norm(b - bs.host_matvec_f64(a, rr.x))
                      / np.linalg.norm(b - bs.host_matvec_f64(a, np.ones(a.n))))
     print(f"7a refined over 4 shards: {rr.status.name}, true f64 relative"
@@ -2148,6 +2187,7 @@ def dist_flagship(dev, it_3a, x_3a, smi):
     if rr.status != ct.SolverStatus.CONVERGED or not true_rel <= 1e-6:
         raise RuntimeError(f"7a: refinement over 4 shards reached only"
                            f" {true_rel!r}")
+    return ms
 
 
 def dist_one_m(dev, smi):
@@ -2156,11 +2196,12 @@ def dist_one_m(dev, smi):
     torch, so that no kernel of this repository runs in path 7)."""
     a = ct.grid_laplacian(*ONE_M)
     b = np.ones(a.n)
+    ones = {}
     for precond in ("none", "jacobi"):
         cfg = DIST_1M_CFG.replace(precond=precond)
         ds, r, rel = dist_solve(f"b {precond} N=4", a, b, 4, cfg, dev, smi)
         del ds
-        r1 = ct.solve(a, b, cfg, format="dia", device=dev)
+        r1 = ones[precond] = ct.solve(a, b, cfg, format="dia", device=dev)
         dx = float(np.linalg.norm(r.x - r1.x) / np.linalg.norm(r1.x))
         print(f"7b {precond}: one device (format dia) {r1.status.name}"
               f" {r1.iters} it ({r1.dt_alg * 1e3 / max(r1.iters, 1):.4f}"
@@ -2171,6 +2212,7 @@ def dist_one_m(dev, smi):
                 and dx <= 1e-6):
             raise RuntimeError(f"7b {precond}: the 4-shard solve and the"
                                f" one-device solve disagree")
+    return ones
 
 
 def dist_block_jacobi(dev, it_ilu, smi):
@@ -2179,9 +2221,11 @@ def dist_block_jacobi(dev, it_ilu, smi):
     grid on 8 shards."""
     a = ct.load_mm_sparse_matrix(os.path.join(ROOT, "data", "mat10000.mtx"))
     b = np.ones(a.n)
+    its = {}
     for n in DIST_SHARDS:
         ds, r, rel = dist_solve(f"c mat10000 N={n}", a, b, n, DIST_BJ_CFG,
                                 dev, smi)
+        its[n] = r.iters
         del ds
         if not (r.converged and rel <= 1e-6):
             raise RuntimeError(f"7c mat10000 N={n}: {r.status.name}")
@@ -2193,6 +2237,7 @@ def dist_block_jacobi(dev, it_ilu, smi):
                             DIST_BJ_CFG, dev, smi)
     if not (r.converged and rel <= 1e-6):
         raise RuntimeError(f"7c {BLOCKED_SIDE}^2: {r.status.name}")
+    return its
 
 
 def dist_allgather(dev, smi):
@@ -2211,17 +2256,28 @@ def dist_allgather(dev, smi):
 
 def dist_cli():
     """7e: the JAX CLI's own distributed example on the card, refined
-    Jacobi, and the rejections (ilu0: the JAX CLI's message; --format and
-    --reorder: the port's, ROADMAP C11)."""
-    m10k = ["-M", os.path.join(ROOT, "data", "mat10000.mtx"), "--devices",
-            "4"]
-    for tag, extra in (("e", ["--precond", "none", "--x64"]),
-                       ("e refine", ["--precond", "jacobi", "--refine"])):
+    Jacobi (both on the engine "auto" picks, its kernels launched), and the
+    rejections (ilu0: the JAX CLI's message; --format and --reorder: the
+    port's, ROADMAP C11)."""
+    path = os.path.join(ROOT, "data", "mat10000.mtx")
+    m10k = ["-M", path, "--devices", "4"]
+    a = ct.load_mm_sparse_matrix(path)
+    for tag, extra, pre in (
+            ("e", ["--precond", "none", "--x64"], "none"),
+            ("e refine", ["--precond", "jacobi", "--refine"], "jacobi")):
+        engine = par_solver.plan_engine(
+            a, 4, ct.SolverConfig(precond=pre), "cuda").engine
         s = cli_step(tag, m10k + extra, path="7")
+        print(f"7{tag}: --devices 4 took the {engine!r} engine (auto),"
+              f" launches {s['launches']}", flush=True)
         if not (s["success"] and s.get("backend") == "cuda"
                 and s.get("rel_true", np.inf) <= 1e-6):
             raise RuntimeError(f"7{tag}: want success on the card with a"
                                f" true relative residual <= 1e-6")
+        want = "dia_spmv" if engine == "pallas" else "const_stencil_spmv"
+        if engine == "xla" or s["launches"].get(want, 0) < 2 * s["iters"]:
+            raise RuntimeError(f"7{tag}: the {engine} engine's kernel did not"
+                               f" carry the solve ({s['launches']})")
     s = cli_step("e ilu0", m10k + ["--precond", "ilu0"], want_rc=1, path="7")
     if s["err"] != ("exact global ILU(0) does not distribute; use --precond"
                     " bjacobi_ilu0 (per-shard ILU) or jacobi\n"):
@@ -2231,6 +2287,199 @@ def dist_cli():
                      want_rc=1, path="7")
         if "do not reach the distributed solver" not in s["err"]:
             raise RuntimeError(f"7e: {flag[0]} with --devices not rejected")
+
+
+def kernel_offsets(tag, ds, r, per_iter):
+    """The launches of ``ds``'s last solve against ``per_iter[k]`` an
+    iteration, by kernel, the same rate for every N: beyond it the set-up
+    launches and, where the loop stops after an iteration's first half, a
+    half iteration more or less (so within one iteration's and 3)."""
+    got = {k: ds.launches.get(k, 0) - c * r.iters for k, c in per_iter.items()}
+    print(f"7{tag}: launches {ds.launches}: {per_iter} an iteration over"
+          f" {r.iters} iterations, and {got}", flush=True)
+    if any(not -c <= got[k] <= c + 3 for k, c in per_iter.items()) \
+            or set(ds.launches) - set(per_iter):
+        raise RuntimeError(f"7{tag}: launches {ds.launches} are not"
+                           f" {per_iter} an iteration")
+
+
+def dist_stencil_engine(dev, it_1, x_1, ms_1, ms_7a, smi):
+    """7f: the flagship's configuration (path 1) on the "stencil" engine,
+    B1 and the fused msolve B2 a shard, on 1, 2, 4 and 8 shards, then on 8
+    with fuse_blas1 (B5), each solved twice; gated as path 1 (ITERS), within
+    DIST_STENCIL_GATE of path 1's count, and by its true relative residual
+    and its x against path 1's.  Returns the 8-shard solver."""
+    a = ct.grid_laplacian(*FLAGSHIP)
+    b = np.ones(a.n)
+    x_1 = np.asarray(x_1, np.float64)
+    keep = None
+    for n, fuse in [(n, False) for n in DIST_SHARDS] + [(8, True)]:
+        tag = f"f N={n}" + (" fuse_blas1" if fuse else "")
+        ds, r, true_rel = dist_solve(tag, a, b, n, FLAGSHIP_CFG.replace(
+            fuse_blas1=fuse), dev, smi, twice=True, engine="stencil")
+        ms = r.dt_alg * 1e3 / r.iters
+        ms2 = "const_series_msolve_fma" if fuse else "const_series_msolve"
+        dx = float(np.linalg.norm(r.x - x_1) / np.linalg.norm(x_1))
+        print(f"7{tag}: {ms:.4f} ms/iter beside 7a's xla engine (exact"
+              f" factors) {ms_7a[n]:.4f} and path 1's one device"
+              f" {ms_1:.4f}; |x - x_1|/|x_1| {dx!r} (gate {DIST_10M_DX}),"
+              f" true relative residual {true_rel!r} (gate"
+              f" {DIST_10M_TRUE_RES}); {smi}", flush=True)
+        kernel_offsets(tag, ds, r, {"const_stencil_spmv": 2, ms2: 2})
+        if ds.engine != "stencil" or ds.msolve_mode != "kernel" \
+                or r.status != ct.SolverStatus.CONVERGED \
+                or not ITERS[0] <= r.iters <= ITERS[1] \
+                or abs(r.iters - it_1) > DIST_STENCIL_GATE \
+                or not true_rel <= DIST_10M_TRUE_RES or not dx <= DIST_10M_DX:
+            raise RuntimeError(
+                f"7{tag}: {ds.engine}/{ds.msolve_mode}, {r.status.name} in"
+                f" {r.iters} iterations, true residual {true_rel!r}, x off"
+                f" by {dx!r} (want stencil/kernel, CONVERGED in {ITERS}"
+                f" within ±{DIST_STENCIL_GATE} of path 1's {it_1},"
+                f" ≤ {DIST_10M_TRUE_RES}, ≤ {DIST_10M_DX})")
+        if (n, fuse) == (8, False):
+            keep = ds
+        del ds
+    return keep
+
+
+def dist_pallas_engine(dev, it_3a, x_3a, ms_3a, ms_7a, ones_7b, smi):
+    """7g: path 7 (a)'s configuration on the "pallas" engine, B3 a shard,
+    on 1, 2, 4 and 8 shards, each solved twice, with 7a's gates; then 7b's
+    1M f64 h-form and Jacobi on 4 shards through B3 in f64, with 7b's
+    residual and x gates and DIST_1M_PALLAS_GATE on the count.  Returns the
+    8-shard solver."""
+    a = ct.grid_laplacian(*FLAGSHIP)
+    b = np.ones(a.n)
+    x_3a = np.asarray(x_3a, np.float64)
+    keep = None
+    for n in DIST_SHARDS:
+        ds, r, true_rel = dist_solve(f"g N={n}", a, b, n, DIST_10M_CFG, dev,
+                                     smi, twice=True, engine="pallas")
+        ms = r.dt_alg * 1e3 / r.iters
+        dx = float(np.linalg.norm(r.x - x_3a) / np.linalg.norm(x_3a))
+        print(f"7g N={n}: {ms:.4f} ms/iter beside 7a's xla engine"
+              f" {ms_7a[n]:.4f} and path 3 (a)'s one device {ms_3a:.4f};"
+              f" |x - x_3a|/|x_3a| {dx!r}, true relative residual"
+              f" {true_rel!r}; {smi}", flush=True)
+        kernel_offsets(f"g N={n}", ds, r, {"dia_spmv": DIST_B3_PER_ITER})
+        if ds.engine != "pallas" or r.status != ct.SolverStatus.CONVERGED \
+                or abs(r.iters - it_3a) > DIST_10M_GATE \
+                or not true_rel <= DIST_10M_TRUE_RES or not dx <= DIST_10M_DX:
+            raise RuntimeError(f"7g N={n}: {ds.engine}, {r.status.name} in"
+                               f" {r.iters} iterations, true residual"
+                               f" {true_rel!r}, x off by {dx!r} (7a's gates)")
+        if n == 8:
+            keep = ds
+        del ds
+    a1 = ct.grid_laplacian(*ONE_M)
+    b1 = np.ones(a1.n)
+    for precond in ("none", "jacobi"):
+        cfg = DIST_1M_CFG.replace(precond=precond)
+        ds, r, rel = dist_solve(f"g 1M {precond} N=4", a1, b1, 4, cfg, dev,
+                                smi, engine="pallas")
+        kernel_offsets(f"g 1M {precond} N=4", ds, r, {"dia_spmv": 2})
+        r1 = ones_7b[precond]
+        dx = float(np.linalg.norm(r.x - r1.x) / np.linalg.norm(r1.x))
+        print(f"7g 1M {precond}: one device (format dia) {r1.iters} it"
+              f" (gate ±{DIST_1M_PALLAS_GATE}); |x diff|/|x| {dx!r}; {smi}",
+              flush=True)
+        if not (ds.engine == "pallas" and r.converged and rel <= 1e-6
+                and abs(r.iters - r1.iters) <= DIST_1M_PALLAS_GATE
+                and dx <= 1e-6):
+            raise RuntimeError(f"7g 1M {precond}: the 4-shard B3 solve and"
+                               f" the one-device solve disagree")
+        del ds
+    return keep
+
+
+def dist_block_jacobi_pallas(dev, its_7c, smi):
+    """7h: block-Jacobi ILU(0) on mat10000 over 8 shards on the engine
+    "auto" picks for it on the card (pallas: B3 on the carry, the blocked
+    trisolve on each shard's rows), with 7c's gates."""
+    a = ct.load_mm_sparse_matrix(os.path.join(ROOT, "data", "mat10000.mtx"))
+    ds, r, rel = dist_solve("h mat10000 N=8", a, np.ones(a.n), 8,
+                            DIST_BJ_CFG, dev, smi, engine="auto")
+    kernel_offsets("h mat10000 N=8", ds, r, {"dia_spmv": 2})
+    print(f"7h: {r.iters} iterations beside 7c's xla engine {its_7c[8]};"
+          f" {smi}", flush=True)
+    if not (ds.engine == "pallas" and r.converged and rel <= 1e-6):
+        raise RuntimeError(f"7h: {ds.engine}, {r.status.name}")
+
+
+def dist_kernel_parity(ds_st, ds_p, stats, smi):
+    """The kernels a shard at N = 8 on the flagship's distributed layouts
+    (shards 1-7 past base 0, random pad blocks as halos would be): B1, B2
+    and B5 from 7f's solver, B3 from 7g's, each one launch for the 8
+    shards, bitwise equal to its twin (on the card) and two launches
+    equal; its device time beside the one-device row, and an
+    application's (the halos scattered into the pads, the launch, the
+    pads cleared)."""
+    part, ops = ds_st.part, ds_st.operands
+    pp, ops_p = ds_p.part, ds_p.operands
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+
+    def rand(ds_):
+        return torch.randn((ds_.mesh.local,
+                            ds_.part.shard_rows + 2 * ds_.carry_block),
+                           generator=gen, device=DEVICE)
+
+    x, a_, b_, c_ = (rand(ds_st) for _ in range(4))
+    xp = rand(ds_p)
+    c1 = torch.tensor(0.37, device=DEVICE)
+    c2 = torch.tensor(-1.9, device=DEVICE)
+    ms_args = (ops["d_pad"], ops["gap_ext"], ops["terms_l"], ops["terms_u"],
+               part.np_true, part.block, part.sub, 0)
+    sp_args = (ops["gapmask"], part.strided_terms, part.np_true, part.block,
+               part.sub, 0)
+    b3 = (pp.offsets, ops_p["block"], ops_p["sub"])
+    # an application works on its input's pads in place: on copies
+    x_app, xp_app = x.clone(), xp.clone()
+    cases = {
+        "const_stencil_spmv": (
+            lambda: st.const_stencil_spmv_padded(x, *sp_args),
+            lambda: st.const_stencil_spmv_padded_plain(x, *sp_args),
+            lambda: ops["matvec"](x_app)),
+        "const_series_msolve": (
+            lambda: st.const_series_msolve_padded(x, *ms_args),
+            lambda: st.const_series_msolve_padded_plain(x, *ms_args),
+            lambda: ops["msolve"](x_app)),
+        "const_series_msolve_fma": (
+            lambda: st.const_series_msolve_fma_padded(a_, c1, b_, c2, c_,
+                                                      *ms_args),
+            lambda: st.const_series_msolve_fma_padded_plain(
+                a_, c1, b_, c2, c_, *ms_args), None),
+        "dia_spmv": (
+            lambda: ds.dia_spmv_block_padded(ops_p["data"], xp, *b3),
+            lambda: ds.dia_spmv_block_padded_plain(ops_p["data"], xp, *b3),
+            lambda: ops_p["matvec"](xp_app)),
+    }
+    for name, (kern, plain, app) in cases.items():
+        n0 = counts()[name]
+        yk, yk2, yp = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if counts()[name] - n0 != 2:
+            raise RuntimeError(f"7 N=8 {name}: not one launch a call")
+        yk, yk2, yp = ((v,) if torch.is_tensor(v) else v
+                       for v in (yk, yk2, yp))
+        err = max(float((u - v).abs().max()) for u, v in zip(yk, yp))
+        same = all(torch.equal(u, v) for u, v in zip(yk, yk2))
+        finite = all(bool(torch.isfinite(u).all()) for u in yk)
+        t = device_ms(kern)
+        line = (f"7 N=8 {name} (batch {tuple(yk[0].shape)}, base"
+                f" 0..{7 * (part if name != 'dia_spmv' else pp).shard_rows}):"
+                f" max|kernel - twin| = {err!r}, two launches equal {same};"
+                f" device {t:.4f} ms a launch for the 8 shards beside one"
+                f" device's {stats[name].get('device_ms', float('nan')):.4f}")
+        if app is not None:
+            line += f", an application {device_ms(app):.4f} ms"
+        print(line + f"; {smi}", flush=True)
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        stats[name]["batched_device_ms"] = t
+        if err != 0.0 or not same or not finite:
+            raise RuntimeError(f"7 N=8 {name}: kernel differs from its twin"
+                               f" or itself (max abs {err!r}; bitwise"
+                               f" required)")
 
 
 def main():
@@ -2351,6 +2600,7 @@ def main():
                                 cfg.replace(maxit=PROFILE_ITERS), ps.dt_setup)
         loop_split("flagship", lambda: cut.solve(b))
     ms_path1 = r.dt_alg * 1e3 / r.iters
+    it_1, x_1 = r.iters, r.x
 
     with phase(timer, "fusion kernel parity"):
         for dt in (torch.float32, torch.float64):
@@ -2507,11 +2757,12 @@ def main():
         entry_solves()
     with phase(timer, "10M exact-factor Neumann solves"):
         b = np.ones(a.n)
-        its, xs = {}, {}
+        its, xs, ms3 = {}, {}, {}
         for tag, ps_n in (("pallas_dia", ps_dia), ("stencil", ps_st)):
             for _ in range(2):
                 r = neumann_10m_solve(ps_n, b, tag)
             its[tag], xs[tag] = r.iters, r.x
+            ms3[tag] = r.dt_alg * 1e3 / r.iters
             print(f"10M {tag} (second solve): dt_setup {ps_n.dt_setup:.3f}"
                   f" s, dtAlg {r.dt_alg * 1e3:.3f} ms,"
                   f" {r.dt_alg * 1e3 / r.iters:.4f} ms/iter, {r.iters}"
@@ -2588,26 +2839,45 @@ def main():
     with phase(timer, "6k the CLI in a subprocess"):
         cli_subprocess()
 
-    # ---- main path 7: the distributed solver on N row shards of the card
+    # ---- main path 7: the distributed solver on N row shards of the card,
+    # (a)-(d) on the "xla" engine, which launches no kernel of this
+    # repository
     reset_counts()
     with phase(timer, "7a distributed 10M exact-factor Neumann"):
-        dist_flagship(dev, its["pallas_dia"], xs["pallas_dia"], smi)
+        ms_7a = dist_flagship(dev, its["pallas_dia"], xs["pallas_dia"], smi)
     with phase(timer, "7b distributed 1M h-form and Jacobi"):
-        dist_one_m(dev, smi)
+        ones_7b = dist_one_m(dev, smi)
     with phase(timer, "7c distributed block-Jacobi ILU(0)"):
-        dist_block_jacobi(dev, ilu_its["mat10000", "float64"], smi)
+        its_7c = dist_block_jacobi(dev, ilu_its["mat10000", "float64"], smi)
     with phase(timer, "7d distributed all-gather"):
         dist_allgather(dev, smi)
-    with phase(timer, "7e the CLI with --devices"):
-        dist_cli()
     path7 = counts()
-    print(f"main path 7 (distributed, xla engine) launches: {path7}",
+    print(f"main path 7 (a)-(d) (distributed, xla engine) launches: {path7}",
           flush=True)
     if any(path7.values()):
-        raise RuntimeError("path 7 launched a kernel of this repository: the"
+        raise RuntimeError("7a-7d launched a kernel of this repository: the"
                            " xla engine runs stock torch ops only")
+    # (e)-(h) on the kernel engines
+    reset_counts()
+    with phase(timer, "7f distributed flagship, stencil engine"):
+        ds_st = dist_stencil_engine(dev, it_1, x_1, ms_path1, ms_7a, smi)
+    with phase(timer, "7g distributed 10M, pallas engine"):
+        ds_p = dist_pallas_engine(dev, its["pallas_dia"], xs["pallas_dia"],
+                                  ms3["pallas_dia"], ms_7a, ones_7b, smi)
+    with phase(timer, "7h distributed block-Jacobi, pallas engine"):
+        dist_block_jacobi_pallas(dev, its_7c, smi)
+    with phase(timer, "7e the CLI with --devices"):
+        dist_cli()
+    path7k = counts()
+    check_counted("main path 7 (e)-(h) (distributed, kernel engines)",
+                  path7k, ("const_stencil_spmv", "const_series_msolve",
+                           "const_series_msolve_fma", "dia_spmv"))
+    with phase(timer, "7 kernels a shard at N=8"):
+        dist_kernel_parity(ds_st, ds_p, stats, smi)
+    del ds_st, ds_p
 
-    paths = (path1, path2, path3, path4a, path4b, path5, path6, path7)
+    paths = (path1, path2, path3, path4a, path4b, path5, path6, path7,
+             path7k)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(p[k] for p in paths), **stats[k]}

@@ -39,6 +39,10 @@ using cmt::mul_rn;
 //   y[j] = gap(q) * sum_k c_k x[j + off_k]   for strided row q = j - block,
 //   0 in the pad blocks and for rows q >= lim (lim = np_true - base, the
 //   shard's tail, clipped to [0, npad]).
+// One launch takes a batch of S such vectors (the row shards a process
+// holds), each npad + 2 block long and stored one after another: shard i
+// is an instance of its own, on grid row blockIdx.y = i, with its base
+// base + i npad.
 // Bound by device memory: x read once and y written once (8 bytes per
 // element in f32, 16 in f64; the gap mask, one block long, stays in L2).
 // On Hopper the parent design (one thread per element, 64-bit indices and a
@@ -385,14 +389,22 @@ __device__ __forceinline__ void spmv_body(
   }
 }
 
+// Shard blockIdx.y's tail: lim0 - blockIdx.y npad (lim0 = np_true - base,
+// shard 0's), clipped to [0, npad].
+__device__ __forceinline__ int shard_lim(long long lim0, int npad) {
+  const long long l = lim0 - static_cast<long long>(blockIdx.y) * npad;
+  return static_cast<int>(l < 0 ? 0 : l > npad ? npad : l);
+}
+
 template <typename T, int P>
 __global__ void __launch_bounds__(kStreamThreads, 4)
 const_stencil_spmv_kernel(const T* __restrict__ x, const T* __restrict__ gap,
                           T* __restrict__ y,
                           const __grid_constant__ TermsT<T> t, int npad,
-                          int block, int lim, int halo, int stages) {
-  spmv_body<T, P, false>(x, gap, y, t, npad, block, lim, halo, stages,
-                         nullptr);
+                          int block, long long lim0, int halo, int stages) {
+  const long long at = static_cast<long long>(blockIdx.y) * (npad + 2 * block);
+  spmv_body<T, P, false>(x + at, gap, y + at, t, npad, block,
+                         shard_lim(lim0, npad), halo, stages, nullptr);
 }
 
 template <typename T, int P, bool Self>
@@ -409,9 +421,16 @@ const_stencil_spmv_dots_kernel(const T* __restrict__ x,
 // B2 and B5, one kernel.  B2 replaces const_series_msolve_padded /
 // _const_msolve_kernel + _msolve_series_interior (pallas_stencil.py:624,
 // :524, :474), the fused Neumann-series M-solve
-//   u = (P_l x) * gap * inv_d,  0 in the pad blocks and for rows q >= lim,
+//   u = (P_l x) * gap * inv_d,  0 where the global row base + q lies outside
+//                               [0, np_true),
 //   y = (P_u u) * gap,          0 in the pad blocks and for rows q >= lim
-// (lim = np_true - base, the shard's tail, clipped to [0, npad]).  B5
+// (lim = np_true - base, the shard's tail, clipped to [0, npad]).  u is
+// taken over the whole window P_u reads, pad blocks included: on a shard
+// whose base is past 0, the rows before its first and after its last are
+// the neighbours' rows, whose x (the halos) and inv_d sit in the pad
+// blocks, as in the JAX kernel's u mask (pallas_stencil.py:495-503).  As
+// B1, one launch takes a batch of S vectors, shard i on grid row
+// blockIdx.y = i with its base base + i npad.  B5
 // replaces const_series_msolve_fma_padded / _const_msolve_fma_kernel (:681,
 // :554): the same series on p, with the solver's BLAS1 update folded in
 // ahead of it,
@@ -472,7 +491,8 @@ struct MsolveArgs {
   const T* gap;      // gap[m], m in [0, block)
   T* p;              // B5's p, null for B2
   T* y;
-  int npad, block, lim;
+  int npad, block;
+  int base, np_true;  // shard 0's global row of q = 0, the true rows
   int nin;           // streams combined into p: 1 (B2's x), 2 or 3
   int stages;        // input ring stages; 0: lean mode
   int xlo, xhi;      // tiles of P_l's reach that the p ring holds
@@ -538,14 +558,27 @@ const_series_msolve_kernel(const __grid_constant__ MsolveArgs<T> k) {
   // P_l's and P_u's terms, one past the last (read ahead of its use)
   __shared__ TermS<T> s_terms[2][kMaxTerms + 1];
   const int tid = threadIdx.x;
-  // the arguments in registers, read once from parameter space
-  const T* __restrict__ xa = k.a;
-  const T* __restrict__ xb = k.b;
-  const T* __restrict__ xc = k.c;
-  const T* __restrict__ inv_d = k.inv_d;
+  // the arguments in registers, read once from parameter space; this
+  // block's shard (blockIdx.y) starts `at` elements into each vector
+  const int npad = k.npad, block = k.block, nin = k.nin;
+  const int total = npad + 2 * block;
+  const long long at = static_cast<long long>(blockIdx.y) * total;
+  const T* __restrict__ xa = k.a + at;
+  const T* __restrict__ xb = k.b == nullptr ? nullptr : k.b + at;
+  const T* __restrict__ xc = k.c == nullptr ? nullptr : k.c + at;
+  const T* __restrict__ inv_d = k.inv_d + at;
   const T* __restrict__ gap = k.gap;
-  T* __restrict__ p_out = k.p;
-  const int npad = k.npad, block = k.block, lim = k.lim, nin = k.nin;
+  T* __restrict__ p_out = k.p == nullptr ? nullptr : k.p + at;
+  T* __restrict__ y_out = k.y + at;
+  // u is taken for rows q in [qlo, qhi) (global rows in [0, np_true)), y
+  // for rows q < lim; all three clipped to the padded vector
+  const long long bq = static_cast<long long>(k.base) +
+                       static_cast<long long>(blockIdx.y) * npad;
+  const int qlo = static_cast<int>(max(-bq, static_cast<long long>(-block)));
+  const int qhi = static_cast<int>(
+      min(max(k.np_true - bq, static_cast<long long>(-block)),
+          static_cast<long long>(npad + block)));
+  const int lim = min(max(qhi, 0), npad);
   const int stages = k.stages, xlo = k.xlo, xhi = k.xhi;
   const int gp_lo = k.gp_lo, gp_hi = k.gp_hi, ru = k.ru;
   const int gu_lo = k.gu_lo, gu_hi = k.gu_hi;
@@ -602,6 +635,8 @@ const_series_msolve_kernel(const __grid_constant__ MsolveArgs<T> k) {
     return add_rn(a, mul_rn(c1, add_rn(b, mul_rn(c2, c))));
   };
   auto p_at = [&](int r) -> T {   // p at padded row r, from device memory
+    // (0 off the vector: only rows of u that no y row reads get there)
+    if (r < 0 || r >= total) return T(0);
     if (nin == 1) return __ldg(xa + r);
     return combine(__ldg(xa + r), __ldg(xb + r),
                    nin > 2 ? __ldg(xc + r) : T(0));
@@ -612,7 +647,7 @@ const_series_msolve_kernel(const __grid_constant__ MsolveArgs<T> k) {
     const int tx = first + dir * (m - bu - bx);
     const int tu = first + dir * (m - E - bu);
     const bool has_x = m < nx && tx >= 0 && tx < inner1 + inner0;
-    const bool has_d = m >= E && tu >= inner0 && tu < inner1;
+    const bool has_d = m >= E && tu >= 0 && tu < inner1 + inner0;
     cmt::mbar_expect(bars + s, (has_x ? nin * kBytes : 0u) +
                                    (has_d ? kBytes : 0u));
     if (has_x) {
@@ -632,7 +667,7 @@ const_series_msolve_kernel(const __grid_constant__ MsolveArgs<T> k) {
 
   // the pad blocks of y (and p), while the first stages load: zero words
   const int pv = block / kVec;
-  V* yv = reinterpret_cast<V*>(k.y);
+  V* yv = reinterpret_cast<V*>(y_out);
   V* pv_out = reinterpret_cast<V*>(p_out);
   for (int v = blockIdx.x * kStreamThreads + tid; v < 2 * pv;
        v += gridDim.x * kStreamThreads) {
@@ -676,7 +711,7 @@ const_series_msolve_kernel(const __grid_constant__ MsolveArgs<T> k) {
       const int row0 = u_tile * kTile;
       const int q0 = row0 - block;
       T uv[P];
-      if (u_tile >= inner0 && u_tile < inner1 && q0 < lim) {
+      if (q0 < qhi && q0 + kTile > qlo) {
         T g[P], d[P];
 #pragma unroll
         for (int u = 0; u < P; ++u) {
@@ -712,10 +747,11 @@ const_series_msolve_kernel(const __grid_constant__ MsolveArgs<T> k) {
               acc);
         }
 #pragma unroll
-        for (int u = 0; u < P; ++u)
-          uv[u] = q0 + tid + u * kStreamThreads < lim
-                      ? mul_rn(mul_rn(acc[u], g[u]), d[u])
-                      : T(0);
+        for (int u = 0; u < P; ++u) {
+          const int q = q0 + tid + u * kStreamThreads;
+          uv[u] = q >= qlo && q < qhi ? mul_rn(mul_rn(acc[u], g[u]), d[u])
+                                      : T(0);
+        }
       } else {
 #pragma unroll
         for (int u = 0; u < P; ++u) uv[u] = T(0);
@@ -801,7 +837,7 @@ const_series_msolve_kernel(const __grid_constant__ MsolveArgs<T> k) {
       for (int u = 0; u < P; ++u) {
         const int e = tid + u * kStreamThreads;
         if (lean)
-          k.y[yrow0 + e] = out[u];
+          y_out[yrow0 + e] = out[u];
         else
           staged[e] = out[u];
       }
@@ -892,12 +928,13 @@ cudaError_t launch_dots_p(const T* x, const T* gap, T* y, const TermsT<T>& t,
   return cudaSuccess;
 }
 
-// B1, or B6 where `da` is given.
+// B1 on `nshards` shards, or B6 (one vector, lim0 its lim) where `da` is
+// given.
 template <typename T, int P>
 int launch_spmv_p(const void* x, const void* gap, void* y,
-                  const TermsT<T>& t, int npad, int block, int lim, int halo,
-                  int stages, int ctas, const DotsArgs<T>* da,
-                  cudaStream_t stream) {
+                  const TermsT<T>& t, int npad, int block, long long lim0,
+                  int nshards, int halo, int stages, int ctas,
+                  const DotsArgs<T>* da, cudaStream_t stream) {
   static size_t allowed = 0;
   constexpr int kTile = P * kStreamThreads;
   const size_t smem = sizeof(T) * static_cast<size_t>(stages + 2) * kTile +
@@ -909,9 +946,11 @@ int launch_spmv_p(const void* x, const void* gap, void* y,
   if (da == nullptr) {
     err = allow_smem(const_stencil_spmv_kernel<T, P>, smem, &allowed);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const_stencil_spmv_kernel<T, P><<<ctas, kStreamThreads, smem, stream>>>(
-        xt, gt, yt, t, npad, block, lim, halo, stages);
+    const_stencil_spmv_kernel<T, P>
+        <<<dim3(ctas, nshards), kStreamThreads, smem, stream>>>(
+            xt, gt, yt, t, npad, block, lim0, halo, stages);
   } else {
+    const int lim = static_cast<int>(lim0);
     err = da->with_self
               ? launch_dots_p<T, P, true>(xt, gt, yt, t, npad, block, lim,
                                           halo, stages, ctas, smem, *da,
@@ -928,49 +967,52 @@ bool aligned16(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
-// B1 and B6: checks every argument the kernel relies on.
+// B1 and B6: checks every argument the kernel relies on.  B1 takes any
+// lim0 (each shard's lim is clipped to [0, npad]); B6 one vector and its
+// lim.
 template <typename T>
 int launch_spmv(const void* x, const void* gap, void* y, const TermsT<T>& t,
-                int npad, int block, int lim, int log_tile, int halo,
-                int stages, int ctas, const DotsArgs<T>* da,
-                cudaStream_t stream) {
+                int npad, int block, long long lim0, int nshards,
+                int log_tile, int halo, int stages, int ctas,
+                const DotsArgs<T>* da, cudaStream_t stream) {
   if (log_tile < 9 || log_tile > 11 || stages > 256) return kBadArgs;
   const int tile = 1 << log_tile;
   if (tile * static_cast<int>(sizeof(T)) < 16 * kStreamThreads ||
       block <= 0 || block % tile != 0 || npad < 0 || npad % tile != 0 ||
       static_cast<long long>(npad) + 2LL * block >= (1LL << 31) ||
-      lim < 0 || lim > npad || halo < 0 || 2 * halo + 2 > stages ||
+      nshards < 1 || nshards > 65535 || halo < 0 || 2 * halo + 2 > stages ||
       static_cast<long long>(halo) * tile > block || ctas < 1 ||
       ctas > npad / tile || !aligned16(x) || !aligned16(y))
     return kBadArgs;
   if (da != nullptr &&
-      (da->partials == nullptr || da->dots == nullptr ||
-       da->ticket == nullptr || !aligned16(da->w) ||
+      (nshards != 1 || lim0 < 0 || lim0 > npad || da->partials == nullptr ||
+       da->dots == nullptr || da->ticket == nullptr || !aligned16(da->w) ||
        (da->w == nullptr && !da->with_self)))
     return kBadArgs;
   for (int k = 0; k < t.n; ++k)
     if (t.off[k] > block || t.off[k] < -block) return kBadArgs;
   switch (log_tile) {
     case 9:
-      return launch_spmv_p<T, 2>(x, gap, y, t, npad, block, lim, halo,
-                                 stages, ctas, da, stream);
+      return launch_spmv_p<T, 2>(x, gap, y, t, npad, block, lim0, nshards,
+                                 halo, stages, ctas, da, stream);
     case 10:
-      return launch_spmv_p<T, 4>(x, gap, y, t, npad, block, lim, halo,
-                                 stages, ctas, da, stream);
+      return launch_spmv_p<T, 4>(x, gap, y, t, npad, block, lim0, nshards,
+                                 halo, stages, ctas, da, stream);
     default:
-      return launch_spmv_p<T, 8>(x, gap, y, t, npad, block, lim, halo,
-                                 stages, ctas, da, stream);
+      return launch_spmv_p<T, 8>(x, gap, y, t, npad, block, lim0, nshards,
+                                 halo, stages, ctas, da, stream);
   }
 }
 
 template <typename T, int P>
-int launch_msolve_p(const MsolveArgs<T>& k, int ctas, size_t smem,
-                    cudaStream_t stream) {
+int launch_msolve_p(const MsolveArgs<T>& k, int ctas, int nshards,
+                    size_t smem, cudaStream_t stream) {
   static size_t allowed = 0;
   cudaError_t err =
       allow_smem(const_series_msolve_kernel<T, P>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const_series_msolve_kernel<T, P><<<ctas, kStreamThreads, smem, stream>>>(k);
+  const_series_msolve_kernel<T, P>
+      <<<dim3(ctas, nshards), kStreamThreads, smem, stream>>>(k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -995,15 +1037,16 @@ enum Geo {
   kGeoUhi, kGeoRu, kGeoGuLo, kGeoGuHi, kGeoWrap, kGeoCtas
 };
 
-// B2 (nin 1: a = x) and B5 (nin 2 or 3).  Checks every argument the kernel
-// relies on; shared memory as msolve_plan counts it.
+// B2 (nin 1: a = x) and B5 (nin 2 or 3) on `nshards` shards.  Checks every
+// argument the kernel relies on; shared memory as msolve_plan counts it.
 template <typename T>
 int launch_msolve(int nin, const void* a, const void* b, const void* c,
                   const void* c1, const void* c2, const void* inv_d,
                   const void* gap, void* p, void* y, const int* off_l,
                   const void* c_l, int nterms_l, const int* off_u,
                   const void* c_u, int nterms_u, int npad, int block,
-                  int lim, const int* geo, cudaStream_t stream) {
+                  int base, int np_true, int nshards, const int* geo,
+                  cudaStream_t stream) {
   MsolveArgs<T> k;
   int hl_lo, hl_hi, hu_lo, hu_hi;
   if (!fill_typed(&k.tl, off_l, c_l, nterms_l, &hl_lo, &hl_hi) ||
@@ -1022,7 +1065,8 @@ int launch_msolve(int nin, const void* a, const void* b, const void* c,
   k.y = static_cast<T*>(y);
   k.npad = npad;
   k.block = block;
-  k.lim = lim;
+  k.base = base;
+  k.np_true = np_true;
   k.nin = nin;
   k.stages = geo[kGeoStages];
   k.xlo = geo[kGeoXlo];
@@ -1046,7 +1090,8 @@ int launch_msolve(int nin, const void* a, const void* b, const void* c,
       tile * sizeof(T) > 8192 || (tile & (tile - 1)) != 0 ||
       block <= 0 || block % tile != 0 || npad <= 0 || npad % block != 0 ||
       static_cast<long long>(npad) + 2LL * block >= (1LL << 31) ||
-      lim < 0 || lim > npad || k.stages < 0 || k.stages > 64 || ctas < 1 ||
+      base < 0 || np_true < 0 || nshards < 1 || nshards > 65535 ||
+      k.stages < 0 || k.stages > 64 || ctas < 1 ||
       ctas > npad / tile || std::max(hl_lo, hl_hi) > block ||
       std::max(hu_lo, hu_hi) > block)
     return kBadArgs;
@@ -1081,14 +1126,14 @@ int launch_msolve(int nin, const void* a, const void* b, const void* c,
     return kBadArgs;
   switch (tile / kStreamThreads) {
     case 1:
-      return launch_msolve_p<T, 1>(k, ctas, smem, stream);
+      return launch_msolve_p<T, 1>(k, ctas, nshards, smem, stream);
     case 2:
-      return launch_msolve_p<T, 2>(k, ctas, smem, stream);
+      return launch_msolve_p<T, 2>(k, ctas, nshards, smem, stream);
     case 4:
-      return launch_msolve_p<T, 4>(k, ctas, smem, stream);
+      return launch_msolve_p<T, 4>(k, ctas, nshards, smem, stream);
     default:
       if constexpr (sizeof(T) == 4)   // 8 KB tiles: 2048 rows in f32 only
-        return launch_msolve_p<T, 8>(k, ctas, smem, stream);
+        return launch_msolve_p<T, 8>(k, ctas, nshards, smem, stream);
       return kBadArgs;
   }
 }
@@ -1099,8 +1144,8 @@ template <typename T>
 int spmv_entry(const void* x, const void* gap, const void* w, void* y,
                void* partials, void* dots, void* ticket, int with_self,
                const int* off, const void* c, int nterms, int npad,
-               int block, int lim, int log_tile, int halo, int stages,
-               int ctas, cudaStream_t s) {
+               int block, long long lim0, int nshards, int log_tile,
+               int halo, int stages, int ctas, cudaStream_t s) {
   if (nterms < 1 || nterms > kMaxTerms) return kBadArgs;
   TermsT<T> t;
   t.n = nterms;
@@ -1111,8 +1156,9 @@ int spmv_entry(const void* x, const void* gap, const void* w, void* y,
   DotsArgs<T> da{static_cast<const T*>(w), static_cast<T*>(partials),
                  static_cast<T*>(dots), static_cast<unsigned*>(ticket),
                  with_self != 0};
-  return launch_spmv<T>(x, gap, y, t, npad, block, lim, log_tile, halo,
-                        stages, ctas, dots != nullptr ? &da : nullptr, s);
+  return launch_spmv<T>(x, gap, y, t, npad, block, lim0, nshards, log_tile,
+                        halo, stages, ctas, dots != nullptr ? &da : nullptr,
+                        s);
 }
 
 }  // namespace
@@ -1120,43 +1166,48 @@ int spmv_entry(const void* x, const void* gap, const void* w, void* y,
 extern "C" {
 
 // dtype: 0 = float32, 1 = float64.  B1: `c` holds the nterms coefficients
-// in that dtype; the geometry (tile = 2^log_tile, halo, ring stages, ctas)
-// is the wrapper's (ops/_kernels.py: spmv_plan).
+// in that dtype; the geometry (tile = 2^log_tile, halo, ring stages, ctas
+// a shard) is the wrapper's (ops/_kernels.py: spmv_plan).  x and y hold
+// nshards vectors of npad + 2 block one after another; lim0 = np_true -
+// base of the first.
 int cmt_const_stencil_spmv(int dtype, const void* x, const void* gap, void* y,
                            const int* off, const void* c, int nterms,
-                           int npad, int block, int lim, int log_tile,
-                           int halo, int stages, int ctas, void* stream) {
+                           int npad, int block, long long lim0, int nshards,
+                           int log_tile, int halo, int stages, int ctas,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return spmv_entry<float>(x, gap, nullptr, y, nullptr, nullptr, nullptr,
-                             0, off, c, nterms, npad, block, lim, log_tile,
-                             halo, stages, ctas, s);
+                             0, off, c, nterms, npad, block, lim0, nshards,
+                             log_tile, halo, stages, ctas, s);
   if (dtype == 1)
     return spmv_entry<double>(x, gap, nullptr, y, nullptr, nullptr, nullptr,
-                              0, off, c, nterms, npad, block, lim, log_tile,
-                              halo, stages, ctas, s);
+                              0, off, c, nterms, npad, block, lim0, nshards,
+                              log_tile, halo, stages, ctas, s);
   return kBadArgs;
 }
 
 // B2.  The terms: int32 offsets, coefficients in the dtype; gap points at
-// gap[0] of the layout block; geo is msolve_plan's (see enum Geo).
+// gap[0] of the layout block; geo is msolve_plan's (see enum Geo; its ctas
+// a shard).  The vectors hold nshards shards of npad + 2 block one after
+// another; base is the first's global strided row of q = 0.
 int cmt_const_series_msolve(int dtype, const void* x, const void* inv_d,
                             const void* gap, void* y, const int* off_l,
                             const void* c_l, int nterms_l, const int* off_u,
                             const void* c_u, int nterms_u, int npad,
-                            int block, int lim, const int* geo,
-                            void* stream) {
+                            int block, int base, int np_true, int nshards,
+                            const int* geo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_msolve<float>(1, x, nullptr, nullptr, nullptr, nullptr,
                                 inv_d, gap, nullptr, y, off_l, c_l,
                                 nterms_l, off_u, c_u, nterms_u, npad, block,
-                                lim, geo, s);
+                                base, np_true, nshards, geo, s);
   if (dtype == 1)
     return launch_msolve<double>(1, x, nullptr, nullptr, nullptr, nullptr,
                                  inv_d, gap, nullptr, y, off_l, c_l,
                                  nterms_l, off_u, c_u, nterms_u, npad, block,
-                                 lim, geo, s);
+                                 base, np_true, nshards, geo, s);
   return kBadArgs;
 }
 
@@ -1175,11 +1226,11 @@ int cmt_const_stencil_spmv_dots(int dtype, const void* x, const void* gap,
   if (dots == nullptr) return kBadArgs;
   if (dtype == 0)
     return spmv_entry<float>(x, gap, w, y, partials, dots, ticket, with_self,
-                             off, c, nterms, npad, block, lim, log_tile, halo,
-                             stages, ctas, s);
+                             off, c, nterms, npad, block, lim, 1, log_tile,
+                             halo, stages, ctas, s);
   if (dtype == 1)
     return spmv_entry<double>(x, gap, w, y, partials, dots, ticket,
-                              with_self, off, c, nterms, npad, block, lim,
+                              with_self, off, c, nterms, npad, block, lim, 1,
                               log_tile, halo, stages, ctas, s);
   return kBadArgs;
 }
@@ -1191,18 +1242,19 @@ int cmt_const_series_msolve_fma(int dtype, const void* a, const void* b,
                                 void* y, const int* off_l, const void* c_l,
                                 int nterms_l, const int* off_u,
                                 const void* c_u, int nterms_u, int npad,
-                                int block, int lim, const int* geo,
-                                void* stream) {
+                                int block, int base, int np_true,
+                                int nshards, const int* geo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nin = c != nullptr ? 3 : 2;
   if (dtype == 0)
     return launch_msolve<float>(nin, a, b, c, c1, c2, inv_d, gap, p, y,
                                 off_l, c_l, nterms_l, off_u, c_u, nterms_u,
-                                npad, block, lim, geo, s);
+                                npad, block, base, np_true, nshards, geo, s);
   if (dtype == 1)
     return launch_msolve<double>(nin, a, b, c, c1, c2, inv_d, gap, p, y,
                                  off_l, c_l, nterms_l, off_u, c_u, nterms_u,
-                                 npad, block, lim, geo, s);
+                                 npad, block, base, np_true, nshards, geo,
+                                 s);
   return kBadArgs;
 }
 

@@ -9,6 +9,11 @@
 // read x_pad[j + off_d] for a true-block row j never leaves the array; rows
 // near the ends read the zero pad blocks.
 //
+// One launch takes a batch of S such problems (the row shards a process
+// holds): S vectors of npad + 2*block one after another, and each
+// diagonal's S rows of npad, data[(d * S + i) * npad + q].  Shard i is an
+// instance of its own, on grid row blockIdx.y = i.
+//
 // The kernel writes every element of its output, pads included: the wrapper
 // allocates it with torch.empty.  Products and sums use the _rn intrinsics,
 // which nvcc never contracts into an FMA, and the sum starts from the first
@@ -44,7 +49,8 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 // B3. Replaces dia_spmv_block_padded / _dia_block_kernel
 // (cuda_mat_tpu/ops/pallas_spmv.py:75, :43):
 //   y[j] = sum_d data[d, j - block] * x[j + off_d]   for j in [block, block + npad),
-//   0 in both pad blocks; diagonals summed in ascending-offset order.
+//   0 in both pad blocks; diagonals summed in ascending-offset order; each
+//   shard of a batch on its own (one thread a row over S (npad + 2 block)).
 // Bound by device memory: it reads each diagonal once, x once and writes y
 // once ((ndiag + 2) * itemsize bytes per row).  One thread per output row:
 // neighbouring threads read neighbouring elements of each diagonal and of
@@ -59,24 +65,28 @@ __global__ void dia_spmv_kernel(const T* __restrict__ data,
                                 int block) {
   const int j = static_cast<int>(blockIdx.x) * kThreads
                 + static_cast<int>(threadIdx.x);
-  if (j >= npad + 2 * block) return;
+  const int total = npad + 2 * block;
+  if (j >= total) return;
+  const long long shard = blockIdx.y;
+  const long long dstride = static_cast<long long>(gridDim.y) * npad;
+  data += shard * npad;
+  x += shard * total;
   const int q = j - block;
   T out = T(0);
   if (q >= 0 && q < npad) {
     out = mul_rn(data[q], x[j + offs.off[0]]);
     for (int d = 1; d < offs.n; ++d)
-      out = add_rn(out, mul_rn(data[static_cast<long long>(d) * npad + q],
-                               x[j + offs.off[d]]));
+      out = add_rn(out, mul_rn(data[d * dstride + q], x[j + offs.off[d]]));
   }
-  y[j] = out;
+  y[shard * total + j] = out;
 }
 
 template <typename T>
 int launch(const void* data, const void* x, void* y, const Offsets& offs,
-           int npad, int block, cudaStream_t stream) {
+           int npad, int block, int nshards, cudaStream_t stream) {
   const int total = npad + 2 * block;
   const int grid = (total + kThreads - 1) / kThreads;
-  dia_spmv_kernel<T><<<grid, kThreads, 0, stream>>>(
+  dia_spmv_kernel<T><<<dim3(grid, nshards), kThreads, 0, stream>>>(
       static_cast<const T*>(data), static_cast<const T*>(x),
       static_cast<T*>(y), offs, npad, block);
   return static_cast<int>(cudaGetLastError());
@@ -87,11 +97,13 @@ int launch(const void* data, const void* x, void* y, const Offsets& offs,
 extern "C" {
 
 // dtype: 0 = float32, 1 = float64.  offsets: ndiag ints, each |off| <= block.
+// nshards: the shards of the batch (1 for one vector).
 int cmt_dia_spmv(int dtype, const void* data, const void* x, void* y,
                  const int* offsets, int ndiag, long long npad,
-                 long long block, void* stream) {
+                 long long block, int nshards, void* stream) {
   if (ndiag < 1 || ndiag > kMaxDiags || block <= 0 || npad < 0 ||
-      npad % block != 0 || npad + 2 * block >= (1LL << 31))
+      npad % block != 0 || npad + 2 * block >= (1LL << 31) || nshards < 1 ||
+      nshards > 65535)
     return kBadArgs;
   Offsets offs;
   offs.n = ndiag;
@@ -101,8 +113,8 @@ int cmt_dia_spmv(int dtype, const void* data, const void* x, void* y,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int np = static_cast<int>(npad), b = static_cast<int>(block);
-  if (dtype == 0) return launch<float>(data, x, y, offs, np, b, s);
-  if (dtype == 1) return launch<double>(data, x, y, offs, np, b, s);
+  if (dtype == 0) return launch<float>(data, x, y, offs, np, b, nshards, s);
+  if (dtype == 1) return launch<double>(data, x, y, offs, np, b, nshards, s);
   return kBadArgs;
 }
 

@@ -89,15 +89,15 @@ def library() -> ctypes.CDLL:
     """The gap-strided stencil kernels B1, B2, B5 and B6
     (``csrc/const_stencil.cu``)."""
     return _load("const_stencil.cu", "libcmt_kernels", {
-        "cmt_const_stencil_spmv": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _P],
+        "cmt_const_stencil_spmv": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
+                                   _I, _I, _I, _I, _I, _P],
         "cmt_const_series_msolve": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                    _I, _I, _I, _I, _P, _P],
+                                    _I, _I, _I, _I, _I, _I, _P, _P],
         "cmt_const_stencil_spmv_dots": [_I] + [_P] * 7 + [_I, _P, _P]
                                        + [_I] * 8 + [_P],
         "cmt_const_series_msolve_fma": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                                        _I, _P, _P]},
+                                        _I, _I, _I, _P, _P]},
         headers=("tma_ring.cuh",))
 
 
@@ -119,7 +119,7 @@ def trisolve_library() -> ctypes.CDLL:
 def dia_library() -> ctypes.CDLL:
     """The banded DIA SpMV B3 (``csrc/dia_spmv.cu``)."""
     return _load("dia_spmv.cu", "libcmt_dia", {
-        "cmt_dia_spmv": [_I, _P, _P, _P, _P, _I, _LL, _LL, _P]})
+        "cmt_dia_spmv": [_I, _P, _P, _P, _P, _I, _LL, _LL, _I, _P]})
 
 
 @functools.lru_cache(maxsize=64)
@@ -471,6 +471,17 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _shards(v: torch.Tensor) -> int:
+    """S of a batch of S padded vectors ``(S, L)``; 1 for one vector."""
+    return v.shape[0] if v.dim() == 2 else 1
+
+
+def _per_shard(ctas: int, nshards: int) -> int:
+    """A plan's persistent blocks shared out over ``nshards`` shards, one
+    grid row each: about as many blocks in all as one vector takes."""
+    return max(1, _ceil(ctas, nshards))
+
+
 def _check_cuda(*ts: torch.Tensor) -> None:
     dev = ts[0].device
     for t in ts:
@@ -503,8 +514,8 @@ def _spmv_launch_args(name: str, x_pad: torch.Tensor, gapmask: torch.Tensor,
                       ws, terms, block: int):
     """The checks and geometry B1 and B6 share (the weights ``ws`` are
     B6's): the library, npad, :func:`spmv_plan` and the term arrays."""
-    if x_pad.shape[0] >= 2 ** 31:
-        raise ValueError(f"padded length {x_pad.shape[0]} needs 64-bit"
+    if x_pad.shape[-1] >= 2 ** 31:
+        raise ValueError(f"padded length {x_pad.shape[-1]} needs 64-bit"
                          f" indices; kernel {name} takes 32-bit ones")
     if len(terms) > MAX_TERMS:
         raise ValueError(f"{len(terms)} stencil terms > {MAX_TERMS}")
@@ -513,7 +524,7 @@ def _spmv_launch_args(name: str, x_pad: torch.Tensor, gapmask: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (x_pad, *ws)):
         raise ValueError(f"kernel {name} streams its vectors by 16-byte"
                          " copies and loads: each must be 16-byte aligned")
-    npad = x_pad.shape[0] - 2 * block
+    npad = x_pad.shape[-1] - 2 * block
     plan = spmv_plan(npad, block, max(abs(t[0]) for t in terms),
                      x_pad.element_size(), _sm_count(x_pad.device))
     return lib, npad, plan, _typed_terms(tuple(terms), x_pad.dtype)
@@ -521,17 +532,19 @@ def _spmv_launch_args(name: str, x_pad: torch.Tensor, gapmask: torch.Tensor,
 
 def const_stencil_spmv(x_pad: torch.Tensor, gapmask: torch.Tensor, terms,
                        np_true: int, block: int, base: int) -> torch.Tensor:
-    """Launch kernel B1 on ``x_pad``'s device and current stream."""
+    """Launch kernel B1 on ``x_pad``'s device and current stream: one
+    launch for one padded vector or a batch ``(S, L)`` of S shards, shard
+    i's base ``base + i·npad``."""
     lib, npad, plan, (off, c) = _spmv_launch_args("B1", x_pad, gapmask, (),
                                                   terms, block)
     y = torch.empty_like(x_pad)
+    nshards = _shards(x_pad)
     with torch.cuda.device(x_pad.device):
         rc = lib.cmt_const_stencil_spmv(
             _DTYPE_CODE[x_pad.dtype], x_pad.data_ptr(), gapmask.data_ptr(),
             y.data_ptr(), off.ctypes.data, c.ctypes.data, len(terms), npad,
-            block, min(max(np_true - base, 0), npad),
-            plan.tile.bit_length() - 1, plan.halo,
-            plan.stages, plan.ctas,
+            block, np_true - base, nshards, plan.tile.bit_length() - 1,
+            plan.halo, plan.stages, _per_shard(plan.ctas, nshards),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "const_stencil_spmv")
     return y
@@ -541,17 +554,20 @@ def _msolve_launch(name: str, lib, streams, outs, inv_d_pad, gapmask_ext,
                    terms_l, terms_u, np_true: int, block: int, base: int,
                    nin: int, *extra):
     """Check B2's or B5's operands, plan the launch and call the C entry
-    ``name`` with ``extra`` (the operand pointers) first."""
+    ``name`` with ``extra`` (the operand pointers) first.  One padded
+    vector or a batch ``(S, L)`` of S shards, shard i's base ``base +
+    i·npad``."""
     x = streams[0]
-    if x.shape[0] >= 2 ** 31:
-        raise ValueError(f"padded length {x.shape[0]} needs 64-bit indices;"
+    if x.shape[-1] >= 2 ** 31:
+        raise ValueError(f"padded length {x.shape[-1]} needs 64-bit indices;"
                          " kernels B2/B5 take 32-bit ones")
     if any(t.data_ptr() % 16 for t in (*streams, *outs, inv_d_pad)):
         raise ValueError("kernels B2/B5 stream their vectors by 16-byte"
                          " copies: each must be 16-byte aligned")
-    npad = x.shape[0] - 2 * block
+    npad = x.shape[-1] - 2 * block
     plan = msolve_plan(npad, block, tuple(terms_l), tuple(terms_u),
                        x.element_size(), nin, _sm_count(x.device))
+    nshards = _shards(x)
     off_l, c_l = _typed_terms(tuple(terms_l), x.dtype)
     off_u, c_u = _typed_terms(tuple(terms_u), x.dtype)
     hpad = (gapmask_ext.shape[0] - block) // 2
@@ -559,15 +575,18 @@ def _msolve_launch(name: str, lib, streams, outs, inv_d_pad, gapmask_ext,
         rc = getattr(lib, name)(
             _DTYPE_CODE[x.dtype], *extra, off_l.ctypes.data, c_l.ctypes.data,
             len(terms_l), off_u.ctypes.data, c_u.ctypes.data, len(terms_u),
-            npad, block, min(max(np_true - base, 0), npad),
-            _geo_array(plan).ctypes.data,
+            npad, block, base, np_true, nshards,
+            _geo_array(plan, nshards).ctypes.data,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, name[4:])
 
 
 @functools.lru_cache(maxsize=64)
-def _geo_array(plan: MsolvePlan) -> np.ndarray:
-    return np.asarray(plan.geo, np.int32)
+def _geo_array(plan: MsolvePlan, nshards: int = 1) -> np.ndarray:
+    """The kernel's geometry argument, its blocks shared out over
+    ``nshards`` shards."""
+    return np.asarray(plan.geo[:-1] + (_per_shard(plan.ctas, nshards),),
+                      np.int32)
 
 
 def const_series_msolve(x_pad: torch.Tensor, inv_d_pad: torch.Tensor,
@@ -739,20 +758,22 @@ def banded_sweep(f: torch.Tensor, wt: torch.Tensor, wct: torch.Tensor, plan,
 
 def dia_spmv(data: torch.Tensor, x_pad: torch.Tensor, offsets,
              block: int) -> torch.Tensor:
-    """Launch kernel B3 on ``x_pad``'s device and current stream."""
+    """Launch kernel B3 on ``x_pad``'s device and current stream: one launch
+    for one padded vector, or for a batch ``(S, L)`` of S shards with
+    ``data`` ``(ndiag, S, npad)``."""
     lib = dia_library()
     _check_cuda(data, x_pad)
     if len(offsets) > MAX_DIAGS:
         raise ValueError(f"{len(offsets)} diagonals > {MAX_DIAGS}")
-    if x_pad.shape[0] >= 2 ** 31:
-        raise ValueError(f"padded length {x_pad.shape[0]} needs 64-bit"
+    if x_pad.shape[-1] >= 2 ** 31:
+        raise ValueError(f"padded length {x_pad.shape[-1]} needs 64-bit"
                          " indices; kernel B3 takes 32-bit ones")
     y = torch.empty_like(x_pad)
     off = _offset_array(tuple(offsets))
     with torch.cuda.device(x_pad.device):
         rc = lib.cmt_dia_spmv(
             _DTYPE_CODE[x_pad.dtype], data.data_ptr(), x_pad.data_ptr(),
-            y.data_ptr(), off.ctypes.data, len(offsets), data.shape[1], block,
-            torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), off.ctypes.data, len(offsets), data.shape[-1],
+            block, _shards(x_pad), torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "dia_spmv")
     return y

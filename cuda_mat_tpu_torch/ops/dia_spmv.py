@@ -34,19 +34,23 @@ def _round_up(x: int, m: int) -> int:
 
 def _check(data: torch.Tensor, x_pad: torch.Tensor, offsets, block: int,
            sub: int) -> None:
-    if data.dim() != 2 or data.shape[0] != len(offsets) or not offsets:
-        raise ValueError(f"data must be (ndiag, npad) with one row per offset,"
+    batch = x_pad.dim() == 2
+    if data.dim() != 2 + batch or data.shape[0] != len(offsets) \
+            or not offsets:
+        raise ValueError(f"data must be (ndiag, npad) with one row per offset"
+                         f" (or (ndiag, S, npad) for a batch (S, L) of x),"
                          f" got {tuple(data.shape)} for {len(offsets)}"
                          " offsets")
-    npad = data.shape[1]
+    npad = data.shape[-1]
     if npad % block or block % sub:
         raise ValueError(f"npad {npad}, block {block} and sub {sub} must"
                          " nest: block | npad, sub | block")
     if max(abs(o) for o in offsets) > sub:
         raise ValueError("diagonal offsets must lie within the halo"
                          f" sub-block {sub}")
-    if tuple(x_pad.shape) != (npad + 2 * block,):
-        raise ValueError(f"x_pad must have shape ({npad + 2 * block},), got"
+    want = data.shape[1:-1] + (npad + 2 * block,)
+    if tuple(x_pad.shape) != want:
+        raise ValueError(f"x_pad must have shape {want}, got"
                          f" {tuple(x_pad.shape)}")
     if data.dtype != x_pad.dtype:
         raise ValueError(f"data and x_pad differ in dtype: {data.dtype} vs"
@@ -59,14 +63,15 @@ def dia_spmv_block_padded_plain(data: torch.Tensor, x_pad: torch.Tensor,
     """Plain PyTorch twin of kernel B3, in the JAX kernel's op order: the
     first diagonal's product, then one add of each further diagonal's
     product in ascending-offset order, over the whole true-block range;
-    both pad blocks written as 0."""
-    npad = data.shape[1]
+    both pad blocks written as 0.  A batch ``(S, L)`` of x takes ``data``
+    ``(ndiag, S, npad)``, each shard on its own."""
+    npad = data.shape[-1]
     acc = None
     for d, off in enumerate(offsets):
-        term = data[d] * x_pad[block + off:block + off + npad]
+        term = data[d] * x_pad[..., block + off:block + off + npad]
         acc = term if acc is None else acc + term
     y = torch.zeros_like(x_pad)
-    y[block:block + npad] = acc
+    y[..., block:block + npad] = acc
     return y
 
 
@@ -78,7 +83,9 @@ def dia_spmv_block_padded(data: torch.Tensor, x_pad: torch.Tensor,
 
     ``data``: (ndiag, npad) row-aligned diagonals, zero past n; ``offsets``:
     ascending, each within ``sub``; ``x_pad``: (npad + 2·block,) with zero
-    pad blocks.  CPU tensors run the plain twin, CUDA tensors kernel B3."""
+    pad blocks.  A batch of S row shards, ``x_pad`` ``(S, npad + 2·block)``
+    and ``data`` ``(ndiag, S, npad)``, runs in one launch, each shard on its
+    own.  CPU tensors run the plain twin, CUDA tensors kernel B3."""
     _check(data, x_pad, offsets, block, sub)
     if x_pad.device.type == "cpu":
         return dia_spmv_block_padded_plain(data, x_pad, offsets, block, sub)

@@ -12,7 +12,10 @@ half), in three parts:
   BLAS1 update) and :func:`const_stencil_spmv_dots_padded` (kernel B6, B1
   with dot products in its epilogue and their sum in the same launch), each
   beside its plain PyTorch twin
-  (``*_plain``).  A front end sends a CPU tensor to the twin and
+  (``*_plain``).  B1, B2 and B5 also take a batch ``(S, L)`` of the padded
+  vectors of S row shards, shard i's base ``base + i·npad``, in one launch
+  (the distributed solver's kernel engines); a batched twin equals S calls
+  of the one-vector twin bit for bit.  A front end sends a CPU tensor to the twin and
   a CUDA tensor to the hand-written kernel (:mod:`._kernels`), or raises; it
   never falls back.  Each keeps a plain-int ``launches`` count of kernel
   launches, so a run can show that its path went through the kernels.
@@ -376,17 +379,48 @@ def _coef(scal: float, dtype: torch.dtype) -> float:
     return torch.tensor(scal, dtype=dtype).item()
 
 
-def _check_layout(x_pad: torch.Tensor, block: int, sub: int, terms) -> int:
-    if x_pad.dim() != 1:
-        raise ValueError(f"padded vectors are 1-D, got shape {tuple(x_pad.shape)}")
-    npad = x_pad.shape[0] - 2 * block
+def _check_layout(x_pad: torch.Tensor, block: int, sub: int, terms,
+                  batch: bool = False) -> int:
+    if x_pad.dim() != 1 and not (batch and x_pad.dim() == 2):
+        shapes = "1-D, or (S, L) for S shards" if batch else "1-D"
+        raise ValueError(f"padded vectors are {shapes}, got shape"
+                         f" {tuple(x_pad.shape)}")
+    npad = x_pad.shape[-1] - 2 * block
     if npad < 0 or npad % block or block % sub:
-        raise ValueError(f"length {x_pad.shape[0]} does not fit block {block}"
-                         f" / sub {sub}")
+        raise ValueError(f"length {x_pad.shape[-1]} does not fit block"
+                         f" {block} / sub {sub}")
     if not terms or max(abs(t[0]) for t in terms) > sub:
         raise ValueError("stencil offsets must be non-empty and within the"
                          " halo sub-block")
     return npad
+
+
+def _global_rows(x_pad: torch.Tensor, block: int, base: int, q0: int,
+                 n: int) -> torch.Tensor:
+    """Global strided rows of the local rows ``[q0, q0 + n)``: ``(n,)`` for
+    one padded vector, ``(S, n)`` for a batch (shard i's base ``base +
+    i·npad``)."""
+    q = torch.arange(q0, q0 + n, device=x_pad.device) + base
+    if x_pad.dim() == 1:
+        return q
+    npad = x_pad.shape[-1] - 2 * block
+    return q + npad * torch.arange(x_pad.shape[0],
+                                   device=x_pad.device)[:, None]
+
+
+def _zero_outside(v: torch.Tensor, rows: torch.Tensor, hi: int,
+                  lo=None) -> torch.Tensor:
+    """``v`` with +0 where ``rows`` lies outside ``[lo, hi)`` (no lower
+    bound without ``lo``): the JAX kernels' ``where(mask, v, zeros)``."""
+    keep = rows < hi if lo is None else (rows >= lo) & (rows < hi)
+    return torch.where(keep, v, torch.zeros_like(v))
+
+
+def _gap_rows(v: torch.Tensor, gapmask: torch.Tensor) -> torch.Tensor:
+    """``v`` (``(..., m·block)``, starting at a block's first row) times
+    the gap mask of each of its rows."""
+    block = gapmask.shape[0]
+    return (v.reshape(*v.shape[:-1], -1, block) * gapmask).reshape(v.shape)
 
 
 def const_stencil_spmv_padded_plain(x_pad: torch.Tensor,
@@ -395,18 +429,23 @@ def const_stencil_spmv_padded_plain(x_pad: torch.Tensor,
                                     base: int = 0) -> torch.Tensor:
     """Plain PyTorch twin of kernel B1, in the JAX kernel's op order:
     ``acc = Σ_k c_k·x[j + off'_k]`` left to right, times the gap mask, with
-    the pad blocks and global strided rows ``>= np_true`` written as 0."""
-    npad = x_pad.shape[0] - 2 * block
+    the pad blocks and global strided rows ``>= np_true`` written as 0.
+    ``x_pad``: one padded vector, or a batch ``(S, L)``."""
+    npad = x_pad.shape[-1] - 2 * block
     acc = None
     for off, scal in terms:
-        term = _coef(scal, x_pad.dtype) * x_pad[block + off:block + off + npad]
+        term = _coef(scal, x_pad.dtype) * x_pad[..., block + off:
+                                                block + off + npad]
         acc = term if acc is None else acc + term
-    acc = (acc.view(-1, block) * gapmask).view(-1)
+    acc = _gap_rows(acc, gapmask)
+    last = base + (x_pad.shape[0] - 1) * npad if x_pad.dim() == 2 else base
+    if last + npad > np_true:   # a tail inside the (last) shard
+        acc = _zero_outside(acc, _global_rows(x_pad, block, base, 0, npad),
+                            np_true)
     y = torch.zeros_like(x_pad)
-    y[block:block + npad] = acc
-    tail = min(max(np_true - base, 0), npad)   # first local row past np_true
-    y[block + tail:block + npad] = 0
+    y[..., block:block + npad] = acc
     return y
+
 
 
 def const_stencil_spmv_padded(x_pad: torch.Tensor, gapmask: torch.Tensor,
@@ -418,9 +457,11 @@ def const_stencil_spmv_padded(x_pad: torch.Tensor, gapmask: torch.Tensor,
 
     ``terms``: (strided offset, scalar) pairs; ``gapmask``: (block,) 0/1;
     ``np_true``: R·S global strided length; ``base``: global strided row of
-    ``x_pad[block]`` (0 on one device).  CPU tensors run the plain twin,
-    CUDA tensors kernel B1."""
-    _check_layout(x_pad, block, sub, terms)
+    ``x_pad[block]`` (0 on one device).  ``x_pad`` may be a batch ``(S,
+    L)`` of S shards' padded vectors, shard i's base ``base + i·npad``: one
+    launch for all.  CPU tensors run the plain twin, CUDA tensors kernel
+    B1."""
+    _check_layout(x_pad, block, sub, terms, batch=True)
     if tuple(gapmask.shape) != (block,):
         raise ValueError(f"gapmask must have shape ({block},)")
     if x_pad.device.type == "cpu":
@@ -440,15 +481,37 @@ def const_series_msolve_padded_plain(x_pad: torch.Tensor,
                                      gapmask_ext: torch.Tensor, terms_l,
                                      terms_u, np_true: int, block: int,
                                      sub: int, base: int = 0) -> torch.Tensor:
-    """Plain PyTorch twin of kernel B2: the two-launch series
-    ``P_u·(inv_d ∘ (P_l x))`` through :func:`const_stencil_spmv_padded_plain`
-    (the JAX package's "series" mode, bitwise-equal to its fused kernel)."""
+    """Plain PyTorch twin of kernel B2, in the JAX kernel's op order
+    (``_msolve_series_interior``, cuda_mat_tpu/ops/pallas_stencil.py:474):
+    ``u = (Σ_k c_k·x[q + off'_k])·gap·inv_d`` over the rows P_u
+    reads, ``[−h_u, npad + h_u)``, pad blocks included, zeroed where the
+    global row ``base + q`` lies outside ``[0, np_true)``; then ``y =
+    P_u u`` through :func:`const_stencil_spmv_padded_plain`.  At ``base =
+    0`` this is the JAX "series" mode, u zero in the pad blocks; on a
+    shard past the first, the rows before it are the neighbour's, its x
+    (the halo) and inv_d in the pad block.  ``x_pad``: one padded vector,
+    or a batch ``(S, L)``."""
     hpad = (gapmask_ext.shape[0] - block) // 2
     gap = gapmask_ext[hpad:hpad + block]
-    u = inv_d_pad * const_stencil_spmv_padded_plain(x_pad, gap, terms_l,
-                                                    np_true, block, sub, base)
-    return const_stencil_spmv_padded_plain(u, gap, terms_u, np_true, block,
-                                           sub, base)
+    npad = x_pad.shape[-1] - 2 * block
+    h_l = max(abs(t[0]) for t in terms_l)
+    # u's rows that P_u reads (none past the pad blocks: a layout with
+    # h_l + h_u > block leaves the rest 0, as the pad blocks were)
+    e = min(max(abs(t[0]) for t in terms_u), max(block - h_l, 0))
+    lo = block - e
+    acc = None
+    for off, scal in terms_l:
+        term = _coef(scal, x_pad.dtype) * x_pad[..., lo + off:
+                                                lo + off + npad + 2 * e]
+        acc = term if acc is None else acc + term
+    g = gap[torch.arange(-e, npad + e, device=gap.device) % block]
+    u = acc * g * inv_d_pad[..., lo:lo + npad + 2 * e]
+    u = _zero_outside(u, _global_rows(x_pad, block, base, -e, npad + 2 * e),
+                      np_true, 0)
+    u_pad = torch.zeros_like(x_pad)
+    u_pad[..., lo:lo + npad + 2 * e] = u
+    return const_stencil_spmv_padded_plain(u_pad, gap, terms_u, np_true,
+                                           block, sub, base)
 
 
 def const_series_msolve_padded(x_pad: torch.Tensor, inv_d_pad: torch.Tensor,
@@ -462,10 +525,12 @@ def const_series_msolve_padded(x_pad: torch.Tensor, inv_d_pad: torch.Tensor,
 
     ``terms_l``/``terms_u``: (strided offset, scalar) pairs of the two
     series polynomials; ``inv_d_pad``: 1/diag(U) in the same layout;
-    ``gapmask_ext``: the (block + 2·hpad,) mask of :func:`extend_gapmask`.
-    CPU tensors run the plain twin, CUDA tensors kernel B2."""
-    _check_layout(x_pad, block, sub, terms_l)
-    _check_layout(x_pad, block, sub, terms_u)
+    ``gapmask_ext``: the (block + 2·hpad,) mask of :func:`extend_gapmask`;
+    ``base``: as in :func:`const_stencil_spmv_padded`, and ``x_pad`` (with
+    ``inv_d_pad``) may be a batch ``(S, L)`` likewise.  CPU tensors run the
+    plain twin, CUDA tensors kernel B2."""
+    _check_layout(x_pad, block, sub, terms_l, batch=True)
+    _check_layout(x_pad, block, sub, terms_u, batch=True)
     if inv_d_pad.shape != x_pad.shape:
         raise ValueError("inv_d_pad must match x_pad's shape")
     hpad = (gapmask_ext.shape[0] - block) // 2
@@ -582,11 +647,17 @@ def const_series_msolve_fma_padded_plain(a_pad, c1, b_pad, c2, c_pad,
                                          inv_d_pad, gapmask_ext, terms_l,
                                          terms_u, np_true: int, block: int,
                                          sub: int, base: int = 0):
-    """Plain PyTorch twin of kernel B5: the combination, then B2's twin."""
+    """Plain PyTorch twin of kernel B5: the combination over the whole
+    vectors, B2's twin on it, and p returned with zero pad blocks (the JAX
+    kernel writes its pad blocks as 0, pallas_stencil.py:596-599; the
+    halos in the inputs' pad blocks reach y only)."""
     p = fma_combine(a_pad, c1, b_pad, c2, c_pad)
-    return p, const_series_msolve_padded_plain(
+    y = const_series_msolve_padded_plain(
         p, inv_d_pad, gapmask_ext, terms_l, terms_u, np_true, block, sub,
         base)
+    p[..., :block] = 0
+    p[..., p.shape[-1] - block:] = 0
+    return p, y
 
 
 def const_series_msolve_fma_padded(a_pad: torch.Tensor, c1,
@@ -606,10 +677,10 @@ def const_series_msolve_fma_padded(a_pad: torch.Tensor, c1,
     returning ``(p_pad, y_pad)``.  ``c1``/``c2``: scalars, as 0-d tensors
     on the vectors' device (the loop's β, −α, −ω), which the kernel reads
     on the device; a Python number is uploaded first.  Same layout as
-    :func:`const_series_msolve_padded`.  CPU tensors run the plain twin,
-    CUDA tensors kernel B5."""
-    _check_layout(a_pad, block, sub, terms_l)
-    _check_layout(a_pad, block, sub, terms_u)
+    :func:`const_series_msolve_padded`, a batch ``(S, L)`` too.  CPU
+    tensors run the plain twin, CUDA tensors kernel B5."""
+    _check_layout(a_pad, block, sub, terms_l, batch=True)
+    _check_layout(a_pad, block, sub, terms_u, batch=True)
     vecs = [b_pad, inv_d_pad] + ([] if c_pad is None else [c_pad])
     if any(v.shape != a_pad.shape for v in vecs):
         raise ValueError("b_pad, c_pad and inv_d_pad must match a_pad's shape")

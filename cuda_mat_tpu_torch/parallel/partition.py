@@ -95,8 +95,8 @@ class RowPartitionedStencil:
     array is the ``(block,)`` gap mask that every block shares.  The strided
     tail ``[np_true, npad)`` is zero.
 
-    A host plan only: the engine that runs it is kernel B1 a shard, which
-    the distributed solver does not take yet (ROADMAP A11b)."""
+    The distributed solver's "stencil" engine runs it: kernel B1 a shard,
+    and the fused msolve B2/B5 on the const factors."""
 
     n: int                  # true dimension R*C
     c_grid: int             # grid row length C

@@ -389,15 +389,29 @@ def test_dist_factor_preconds_reject_general(precond):
 
 
 @pytest.mark.parametrize("engine", ["pallas", "stencil"])
-def test_kernel_engines_are_not_run_by_another(lap, engine):
-    """The kernel engines come with ROADMAP A11b; until then they raise and
-    never fall back to the "xla" engine."""
-    for call in (lambda: tp.dist_bicgstab(_port(lap), np.ones(lap.n),
-                                          _mesh(4), local_engine=engine),
-                 lambda: tp.dist_spmv(_port(lap), np.ones(lap.n), _mesh(4),
-                                      local_engine=engine)):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            call()
+def test_kernel_engines_are_not_run_by_another(lap, b, engine):
+    """A kernel engine asked for is the one that runs (its kernel's twin on
+    the CPU, on the carry layout), never the "xla" engine: the SpMV within
+    rtol 1e-12 of the host product and of the JAX engine's, the solve
+    within ±5 iterations of the JAX solve on the same engine, x within
+    rtol 1e-6 (the JAX package's own kernel-engine cases are in
+    tests/test_torch_parallel_kernels.py)."""
+    x = np.random.default_rng(5).standard_normal(lap.n)
+    y = tp.dist_spmv(_port(lap), x, _mesh(4), local_engine=engine)
+    yj = jp.dist_spmv(lap, x, jp.make_mesh(4), local_engine=engine,
+                      interpret=True)
+    np.testing.assert_allclose(y, lap.matvec(x), rtol=SPMV_RTOL,
+                               atol=SPMV_RTOL)
+    np.testing.assert_allclose(y, yj, rtol=SPMV_RTOL, atol=SPMV_RTOL)
+    cfg = dict(maxit=2000, tol=1e-8, precond="jacobi")
+    ds = tp.make_dist_bicgstab(_port(lap), _mesh(4), ct.SolverConfig(**cfg),
+                               local_engine=engine)
+    assert ds.engine == engine and ds.carry_block > 0
+    rt = ds.solve(b)
+    rj = jp.dist_bicgstab(lap, b, jp.make_mesh(4), JConfig(**cfg),
+                          local_engine=engine)
+    assert rt.status == rj.status and abs(rt.iters - rj.iters) <= ITERS
+    np.testing.assert_allclose(rt.x, rj.x, rtol=RTOL_X, atol=1e-9)
 
 
 def test_make_mesh_needs_a_card_or_the_cpu(monkeypatch):
@@ -422,7 +436,7 @@ def test_make_mesh_devices_and_counts():
     assert not torch.distributed.is_initialized()
 
 
-# -- the stencil plan (its engine is ROADMAP A11b) ---------------------------
+# -- the stencil plan ---------------------------------------------------------
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,12 @@ The module spawns the two ranks of ``tests/torch_parallel_runner.py`` once
 - Jacobi and ilu0_neumann (tol 1e-8) converge to a true relative residual
   below 1e-6, both ranks report the same status and iterations and the
   same x, and the count lies within ±2 of the same solve on one process
-  with 4 shards (the processes sum the dot partials in another order).
+  with 4 shards (the processes sum the dot partials in another order);
+- the "stencil" engine on ``grid_laplacian(64, 126)``: its matvec and
+  fused msolve in the split form (across the ranks) bitwise equal to the
+  scatter form, and its const-factor Neumann solve, plain and with
+  fuse_blas1, as the solves above: the same on both ranks, within ±2
+  iterations of one process with 4 shards.
 """
 
 import json
@@ -75,9 +80,21 @@ def one_process():
     rng.standard_normal(a.n)
     b = rng.uniform(1.0, 5.0, a.n)
     mesh = make_mesh(2 * WORLD, device="cpu")
-    return {p: dist_bicgstab(a, b, mesh, SolverConfig(maxit=2000, tol=1e-8,
-                                                      precond=p))
-            for p in ("jacobi", "ilu0_neumann")}
+    got = {p: dist_bicgstab(a, b, mesh, SolverConfig(maxit=2000, tol=1e-8,
+                                                     precond=p))
+           for p in ("jacobi", "ilu0_neumann")}
+    # the runner's stencil cases (its STENCIL_CFG): its rng after the
+    # first b
+    from cuda_mat_tpu_torch.models.problems import grid_laplacian
+
+    g = grid_laplacian(64, 126)
+    rng.standard_normal(g.n)
+    bg = rng.uniform(1.0, 5.0, g.n)
+    for tag, extra in (("stencil", {}), ("stencil_fma", {"fuse_blas1": True})):
+        got[tag] = dist_bicgstab(g, bg, mesh, SolverConfig(
+            maxit=2000, tol=1e-8, precond="ilu0_neumann", neumann_terms=3,
+            **extra), local_engine="stencil")
+    return got
 
 
 def test_each_rank_holds_two_shards_and_multiplies(ranks):
@@ -91,7 +108,13 @@ def test_overlapped_matvec_is_bitwise_across_processes(ranks):
     assert all(r["overlap_bitwise"] for r in ranks)
 
 
-@pytest.mark.parametrize("precond", ["jacobi", "ilu0_neumann"])
+@pytest.mark.parametrize("what", ["matvec", "msolve"])
+def test_stencil_split_form_is_bitwise_across_processes(ranks, what):
+    assert all(r[f"stencil_{what}_bitwise"] for r in ranks)
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "ilu0_neumann", "stencil",
+                                     "stencil_fma"])
 def test_ranks_converge_together(ranks, one_process, precond):
     got = [r[precond] for r in ranks]
     for g in got:

@@ -21,6 +21,20 @@ own, and sets the window.
   (``banded_laplacian(40)``, tol 1e-8, 4 shards, b uniform in [1, 5) from
   seed 3) for each preconditioner, over that b and K − 1 one-ulp changes
   of it: both packages' counts, and how far they move.
+- ``hform-pallas R``: ``hform R`` on the "pallas" engine (path 7 (g)'s
+  1M solves through B3): the JAX package's interpret kernel a shard, the
+  port's twin a shard, against the one-device DIA solves (the JAX
+  interpret kernel takes minutes a solve past R = 1000).
+- ``hform-ulp R K``: path 7 (b)'s and (g)'s f64 h-form on 4 shards over b
+  = ones and K − 1 one-ulp (f64) changes of it: each package's one-device
+  count and its "xla" engine's, and the port's "pallas" engine's (its
+  twin of B3 a shard); the spread of the reference's counts over rounding
+  at R = 10000, where the JAX interpret kernel is too slow to run.
+- ``stencil R``: path 7 (f)'s, the flagship's configuration (const
+  Neumann factors k = 4, MILU ω 0.96, f32, tol 1e-4, b = x0 = ones) on
+  ``grid_laplacian(R, 100)``: one device (``format="stencil"``, path 1)
+  and N = 1, 2, 4, 8 shards on the "stencil" engine (the JAX package's
+  interpret kernels; the port's twins).
 - ``shuffled SIDE K``: path 7 (d)'s, Jacobi, f64, tol 1e-6, on
   ``banded_laplacian(SIDE)`` numbered at random (the permutations of
   ``np.random.default_rng(seed)``, seeds 0..K−1; seed 0 is
@@ -34,6 +48,9 @@ Run as a script (one torch thread; the JAX solves use XLA's CPU threads):
     PYTHONPATH=. python tests/test_torch_parallel_scan.py shuffled 316 4
     PYTHONPATH=. python tests/test_torch_parallel_scan.py neumann-ulp 1000 8
     PYTHONPATH=. python tests/test_torch_parallel_scan.py card-slack 16
+    PYTHONPATH=. python tests/test_torch_parallel_scan.py stencil 500 1000
+    PYTHONPATH=. python tests/test_torch_parallel_scan.py hform-pallas 500
+    PYTHONPATH=. python tests/test_torch_parallel_scan.py hform-ulp 10000 6
 
 (a few minutes each).  The tests check the smallest case and three b at
 R = 1000.
@@ -63,6 +80,8 @@ SHARDS = (1, 2, 4, 8)
 NEUMANN = dict(maxit=2000, tol=1e-4, dtype="float32", precond="ilu0_neumann",
                neumann_terms=3, neumann_const_factors=False)
 HFORM = dict(maxit=5000, tol=1e-6, dtype="float64")
+FLAGSHIP = dict(maxit=2000, tol=1e-4, dtype="float32", precond="ilu0_neumann",
+                neumann_terms=4, milu_omega=0.96)
 
 
 def _port(a):
@@ -79,24 +98,26 @@ def nudged(b, seed, dtype=np.float64):
     return b
 
 
-def counts(a, cfg, one_device_format, shards=SHARDS, b=None, strict=True):
+def counts(a, cfg, one_device_format, shards=SHARDS, b=None, strict=True,
+           engine="xla"):
     """``{(package, layout): iterations}`` of ``cfg``'s solves of ``a``
     with ``b`` (ones by default): ``(package, "one device")`` on
     ``one_device_format`` (the port's "pallas_dia" is the JAX package's
     "dia"; None: none) and ``(package, N)`` over N row shards.  A solve
     that does not converge fails the call, or with ``strict=False`` stands
-    as ``"STATUS@iterations"``, outside every spread."""
+    as ``"STATUS@iterations"``, outside every spread.  ``engine``: the
+    distributed solves' local engine."""
     b = np.ones(a.n) if b is None else b
     ta = _port(a)
     if one_device_format is None and shards:
-        return _shard_counts(a, ta, b, cfg, shards, {}, strict)
+        return _shard_counts(a, ta, b, cfg, shards, {}, strict, engine)
     jfmt = "dia" if one_device_format == "pallas_dia" else one_device_format
     rt = ct.solve(ta, b, ct.SolverConfig(**cfg), format=one_device_format,
                   device="cpu")
     rj = cm.solve(a, b, cm.SolverConfig(**cfg), format=jfmt)
     out = {("port", "one device"): _count(rt, strict),
            ("jax", "one device"): _count(rj, strict)}
-    return _shard_counts(a, ta, b, cfg, shards, out, strict)
+    return _shard_counts(a, ta, b, cfg, shards, out, strict, engine)
 
 
 def _count(r, strict):
@@ -104,12 +125,12 @@ def _count(r, strict):
     return r.iters if r.converged else f"{r.status.name}@{r.iters}"
 
 
-def _shard_counts(a, ta, b, cfg, shards, out, strict):
+def _shard_counts(a, ta, b, cfg, shards, out, strict, engine="xla"):
     for n in shards:
         rj = jp.dist_bicgstab(a, b, jp.make_mesh(n), cm.SolverConfig(**cfg),
-                              local_engine="xla")
+                              local_engine=engine)
         rt = tp.dist_bicgstab(ta, b, tp.make_mesh(n, device="cpu"),
-                              ct.SolverConfig(**cfg))
+                              ct.SolverConfig(**cfg), local_engine=engine)
         out["jax", n], out["port", n] = _count(rj, strict), _count(rt, strict)
     return out
 
@@ -217,6 +238,36 @@ def main(argv):
                 f"{pkg} {v[0]} as given, {min(v)}..{max(v)} (spread"
                 f" {max(v) - min(v)})" for pkg, v in its.items()),
                 flush=True)
+    elif mode == "hform-pallas":
+        for r in sizes:
+            for pre in ("none", "jacobi"):
+                report(f"hform-pallas {pre} R={r} n={r * 100}", counts(
+                    grid_laplacian(r, 100), dict(HFORM, precond=pre), "dia",
+                    engine="pallas"))
+    elif mode == "hform-ulp":
+        r, k = sizes
+        a = grid_laplacian(r, 100)
+        pooled = {}
+        for seed in range(k):
+            b = nudged(np.ones(a.n), seed)
+            got = counts(a, HFORM, "dia", shards=(4,), b=b)
+            got["port pallas", 4] = tp.dist_bicgstab(
+                _port(a), b, tp.make_mesh(4, device="cpu"),
+                ct.SolverConfig(**HFORM), local_engine="pallas").iters
+            print(f"hform-ulp R={r} b seed {seed}: {got}", flush=True)
+            for key, v in got.items():
+                pooled.setdefault(key, []).append(v)
+        one = pooled["jax", "one device"]
+        print(f"hform-ulp R={r} over {k} b: " + "; ".join(
+            f"{p} {n}: {min(v)}..{max(v)}" for (p, n), v in pooled.items())
+            + f"; the JAX package's 4-shard count from its one-device count:"
+            f" up to {max(abs(x - o) for x, o in zip(pooled['jax', 4], one))}"
+            f" of {min(one)}..{max(one)}", flush=True)
+    elif mode == "stencil":
+        for r in sizes:
+            report(f"stencil R={r} n={r * 100}",
+                   counts(grid_laplacian(r, 100), FLAGSHIP, "stencil",
+                          engine="stencil"))
     elif mode == "shuffled":
         side, k = sizes
         g = grid_laplacian(side, side)
