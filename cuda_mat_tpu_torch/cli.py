@@ -18,9 +18,10 @@ Flags whose JAX meaning has no torch counterpart are mapped, never dropped:
 unless ``--platform cpu`` is given), ``--x64`` (float64 as the default
 ``--dtype``; nothing global is set), ``--debug-nans`` (FloatingPointError at
 the first non-finite residual), ``--profile DIR`` (a ``torch.profiler``
-Chrome trace of the solve phase in DIR) and ``--devices N`` (the
-distributed solver over a mesh of N row shards of the ``--platform``
-device).  ``--format`` reaches the solver, including the inner solver of
+Chrome trace of the solve phase in DIR, with the program's spans of
+:mod:`~cuda_mat_tpu_torch.utils.timing` beside the kernels) and
+``--devices N`` (the distributed solver over a mesh of N row shards of the
+``--platform`` device).  ``--format`` reaches the solver, including the inner solver of
 ``--refine`` (the JAX CLI drops it, ROADMAP C8).  With ``--devices``,
 ``--format`` and ``--reorder`` have no path and exit 1 (the JAX CLI drops
 them silently, ROADMAP C11).

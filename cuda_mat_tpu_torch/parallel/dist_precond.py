@@ -24,6 +24,7 @@ from cuda_mat_tpu_torch.formats.csr import CSRMatrix
 from cuda_mat_tpu_torch.ops.trisolve import (BlockTriangularSolver,
                                              _block_setup_tri)
 from cuda_mat_tpu_torch.parallel.partition import RowPartitionedBanded
+from cuda_mat_tpu_torch.utils import timing
 
 
 def _local_block_csr(part: RowPartitionedBanded, shard: int) -> CSRMatrix:
@@ -62,7 +63,8 @@ def build_block_jacobi_ilu(part: RowPartitionedBanded, trisolve_block: int,
     per_shard = []
     for s in range(part.ndev):
         local = _local_block_csr(part, s)
-        mvals = _factorize(local, milu_omega)
+        with timing.span("precond.factor"):
+            mvals = _factorize(local, milu_omega)
         lo = _block_setup_tri(local, mvals, trisolve_block, lower=True)
         up = _block_setup_tri(local, mvals, trisolve_block, lower=False)
         per_shard.append((lo, up))

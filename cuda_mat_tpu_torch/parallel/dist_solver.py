@@ -39,7 +39,6 @@ Everywhere:
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -61,6 +60,7 @@ from cuda_mat_tpu_torch.solvers.bicgstab import (_RUNNING,
                                                  _dtype_of, hform_core,
                                                  precond_core)
 from cuda_mat_tpu_torch.solvers.result import SolveResult, SolverStatus
+from cuda_mat_tpu_torch.utils import timing
 from cuda_mat_tpu_torch.utils.timing import device_sync
 
 _PRECONDS = ("none", "jacobi", "bjacobi_ilu0", "ilu0_neumann")
@@ -609,28 +609,39 @@ class DistBicgstabSolver:
         """Solve ``A x = b``; ``x0`` defaults to all-ones (reference
         pbicgstab.cu:827-832).  ``dt_alg`` excludes the uploads (reference
         pbicgstab.h:108-109); the true residual is attached as the
-        single-device solve does."""
+        single-device solve does.  Recorded as a ``solve`` with the
+        single-device solve's spans (:mod:`~cuda_mat_tpu_torch.utils.
+        timing`)."""
         part = self.part
-        bp = self._put_vec(b)
-        x0p = self._put_vec(np.ones(part.n) if x0 is None else x0)
-        device_sync(self.mesh.device)
-        t1 = time.perf_counter()
-        x, status, iters, nrmr, nrmr0, hist = self._run(x0p, bp)
-        device_sync(self.mesh.device)
-        t2 = time.perf_counter()
-        status = int(status)
-        if status == _RUNNING:
-            status = SolverStatus.MAXIT
-        xh = fetch_global(x, self.mesh)
-        if self.carry_block:
-            xh = _from_carry(xh, part.ndev, part.shard_rows,
-                             self.carry_block)
-        res = SolveResult(
-            x=part.unpad_vector(xh),
-            status=SolverStatus(status), iters=int(iters),
-            residual=float(nrmr), residual0=float(nrmr0), dt_alg=t2 - t1,
-            dt_setup=self.dt_setup, residual_history=hist.cpu().numpy())
-        return _attach_true_residual(res, self.a, b, self._config)
+        with timing.record("solve") as rec:
+            with timing.span("solve.prep"):
+                with timing.span("solve.prep.b"):
+                    bp = self._put_vec(b)
+                with timing.span("solve.prep.x0"):
+                    x0p = self._put_vec(np.ones(part.n) if x0 is None
+                                        else x0)
+                with timing.span("solve.prep.sync"):
+                    device_sync(self.mesh.device)
+            with timing.span("solve.loop") as loop:
+                x, status, iters, nrmr, nrmr0, hist = self._run(x0p, bp)
+                device_sync(self.mesh.device)
+            with timing.span("solve.finish"):
+                status = int(status)
+                if status == _RUNNING:
+                    status = SolverStatus.MAXIT
+                xh = fetch_global(x, self.mesh)
+                if self.carry_block:
+                    xh = _from_carry(xh, part.ndev, part.shard_rows,
+                                     self.carry_block)
+                res = SolveResult(
+                    x=part.unpad_vector(xh),
+                    status=SolverStatus(status), iters=int(iters),
+                    residual=float(nrmr), residual0=float(nrmr0),
+                    dt_alg=loop.seconds, dt_setup=self.dt_setup,
+                    residual_history=hist.cpu().numpy())
+                res = _attach_true_residual(res, self.a, b, self._config)
+            rec.iters = res.iters
+        return res
 
 
 def dist_bicgstab(a, b: np.ndarray, mesh: Mesh,
@@ -859,8 +870,17 @@ def make_dist_bicgstab(a, mesh: Mesh, config: SolverConfig = DEFAULT_CONFIG,
 
     ``halo_mode`` and ``local_engine``: see :func:`plan_engine`.  The
     engine that runs is the solver's ``engine``; no engine runs in place of
-    another, and a kernel that fails to build or launch raises."""
-    t0 = time.perf_counter()
+    another, and a kernel that fails to build or launch raises.  Recorded
+    as a ``make_solver`` (:mod:`~cuda_mat_tpu_torch.utils.timing`), whose
+    span is ``dt_setup``."""
+    with timing.record("make_solver") as rec:
+        ds = _build_dist_bicgstab(a, mesh, config, halo_mode, local_engine)
+    ds.dt_setup = rec.seconds("make_solver")
+    return ds
+
+
+def _build_dist_bicgstab(a, mesh: Mesh, config: SolverConfig, halo_mode: str,
+                         local_engine: str) -> DistBicgstabSolver:
     dt = _dtype_of(config)
     ndev = mesh.ndev
     comm = ShardComm(mesh)
@@ -988,8 +1008,8 @@ def make_dist_bicgstab(a, mesh: Mesh, config: SolverConfig = DEFAULT_CONFIG,
 
     operands.update(matvec=matvec, msolve=msolve, msolve_fma=msolve_fma)
     device_sync(mesh.device)
-    return DistBicgstabSolver(a, part, mesh, run, dt, config,
-                              time.perf_counter() - t0, carry_block=cb,
+    return DistBicgstabSolver(a, part, mesh, run, dt, config, 0.0,
+                              carry_block=cb,
                               engine=engine, msolve_mode=msolve_mode,
                               operands=operands)
 

@@ -41,6 +41,7 @@ from cuda_mat_tpu_torch.ops.stencil import (
     restride_dia, strided_offsets)
 from cuda_mat_tpu_torch.ops.trisolve import BlockTriangularSolver
 from cuda_mat_tpu_torch.reference.cpu_solvers import ilu0_factorize
+from cuda_mat_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,8 +110,9 @@ class ILU0Preconditioner:
                 f" bjacobi_ilu0 for systems this large")
         engine = BandedTriSolver if bandwidth(csr) <= block \
             else BlockTriangularSolver
-        return cls(engine.from_factor(csr, _factorize(csr, milu_omega),
-                                      block=block, dtype=dtype,
+        with timing.span("precond.factor"):
+            mvals = _factorize(csr, milu_omega)
+        return cls(engine.from_factor(csr, mvals, block=block, dtype=dtype,
                                       device=device))
 
     def msolve(self, f: torch.Tensor) -> torch.Tensor:
@@ -328,7 +330,13 @@ def neumann_factors(csr, milu_omega: float = 0.0):
     returns ``(N_l, N_u, diag)`` where ``N_l`` is the strict lower triangle of
     M (unit-lower L = I + N_l), ``N_u`` is D⁻¹·strict-upper (U = D(I + N_u)),
     both as host CSR, and ``diag`` is D.  ``milu_omega`` > 0 switches to
-    relaxed modified ILU(0) (:func:`milu0_factorize`)."""
+    relaxed modified ILU(0) (:func:`milu0_factorize`).  Recorded as the
+    span ``precond.factor``."""
+    with timing.span("precond.factor"):
+        return _neumann_factors(csr, milu_omega)
+
+
+def _neumann_factors(csr, milu_omega: float):
     mvals = _factorize(csr, milu_omega)
     rows = np.repeat(np.arange(csr.n, dtype=np.int64), csr.row_lengths)
     cols = csr.indices.astype(np.int64)

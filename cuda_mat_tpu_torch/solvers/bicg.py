@@ -52,6 +52,7 @@ def bicg_core(matvec, matvec_t, b: torch.Tensor, eps: float, maxit: int,
     hist = torch.full((maxit,), -1.0, dtype=b.dtype, device=b.device)
     status, i = 0, 0
     while i < maxit and status == 0:
+        watch.step()
         ap = matvec(p)
         atbip = matvec_t(bip)
         numerator = dot(bir, r)
@@ -67,6 +68,7 @@ def bicg_core(matvec, matvec_t, b: torch.Tensor, eps: float, maxit: int,
         status_t = conv.to(torch.int32)
         r, bir, p, bip = nr, nbir, nr + beta * p, nbir + beta * bip
         status, i = watch.poll(status_t, i_t, (check,), i)
+    watch.close()
     return x, status_t, i_t, check, norm, hist
 
 

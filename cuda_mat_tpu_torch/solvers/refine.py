@@ -14,7 +14,6 @@ mesh of row shards.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -22,6 +21,7 @@ import numpy as np
 from cuda_mat_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from cuda_mat_tpu_torch.solvers.bicgstab import host_matvec_f64, make_solver
 from cuda_mat_tpu_torch.solvers.result import SolveResult, SolverStatus
+from cuda_mat_tpu_torch.utils import timing
 
 
 def solve_refined(a, b: np.ndarray, config: SolverConfig = DEFAULT_CONFIG,
@@ -51,8 +51,20 @@ def solve_refined(a, b: np.ndarray, config: SolverConfig = DEFAULT_CONFIG,
     that makes the f64 residual worse is reverted and the loop stops with
     status MAXIT, as in the JAX package (its residual stays last in the
     history).
+
+    Recorded as a ``refine`` (:mod:`~cuda_mat_tpu_torch.utils.timing`):
+    each restart's host residual is the span ``refine.residual``, its
+    inner solve ``refine.inner``.
     """
-    t0 = time.perf_counter()
+    with timing.record("refine") as rec:
+        res = _refine(a, b, config, inner_tol, max_restarts, x0, mesh,
+                      local_engine, solver, device)
+    res.dt_setup = rec.seconds("refine") - res.dt_alg
+    return res
+
+
+def _refine(a, b, config, inner_tol, max_restarts, x0, mesh, local_engine,
+            solver, device) -> SolveResult:
     b64 = np.asarray(b, dtype=np.float64)
     norm_b0: Optional[float] = None
     x = (np.ones(a.n, dtype=np.float64) if x0 is None
@@ -79,8 +91,9 @@ def solve_refined(a, b: np.ndarray, config: SolverConfig = DEFAULT_CONFIG,
     prev_nrm = np.inf
     x_prev = x
     for _ in range(max_restarts):
-        r = b64 - host_matvec_f64(a, x)             # float64 true residual
-        nrm = float(np.linalg.norm(r))
+        with timing.span("refine.residual"):
+            r = b64 - host_matvec_f64(a, x)         # float64 true residual
+            nrm = float(np.linalg.norm(r))
         if norm_b0 is None:
             norm_b0 = nrm if nrm > 0 else 1.0       # ||r0|| as in the reference
         outer_hist.append(nrm)
@@ -94,7 +107,8 @@ def solve_refined(a, b: np.ndarray, config: SolverConfig = DEFAULT_CONFIG,
         if rel < config.tol:
             status = SolverStatus.CONVERGED
             break
-        inner = solver.solve(r, x0=zero)
+        with timing.span("refine.inner"):
+            inner = solver.solve(r, x0=zero)
         dt_alg += inner.dt_alg
         total_inner += inner.iters
         if inner.status == SolverStatus.BREAKDOWN and \
@@ -107,6 +121,5 @@ def solve_refined(a, b: np.ndarray, config: SolverConfig = DEFAULT_CONFIG,
     return SolveResult(
         x=x, status=status, iters=total_inner, residual=float(rel * norm_b0),
         residual0=float(norm_b0), dt_alg=dt_alg,
-        dt_setup=time.perf_counter() - t0 - dt_alg,
         residual_history=np.asarray(outer_hist),
         residual_true=float(rel * norm_b0))

@@ -11,6 +11,8 @@ The module spawns the two ranks of ``tests/torch_parallel_runner.py`` once
   below 1e-6, both ranks report the same status and iterations and the
   same x, and the count lies within ±2 of the same solve on one process
   with 4 shards (the processes sum the dot partials in another order);
+  each rank records each solve with the single-device solve's spans, its
+  ``dt_alg`` the record's ``solve.loop``;
 - the "stencil" engine on ``grid_laplacian(64, 126)``: its matvec and
   fused msolve in the split form (across the ranks) bitwise equal to the
   scatter form, and its const-factor Neumann solve, plain and with
@@ -106,6 +108,16 @@ def test_each_rank_holds_two_shards_and_multiplies(ranks):
 
 def test_overlapped_matvec_is_bitwise_across_processes(ranks):
     assert all(r["overlap_bitwise"] for r in ranks)
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "ilu0_neumann"])
+def test_each_rank_records_its_solves(ranks, precond):
+    spans = sorted(["solve", "solve.prep", "solve.prep.b", "solve.prep.x0",
+                    "solve.prep.sync", "solve.loop", "loop.step",
+                    "loop.poll", "solve.finish"])
+    for r in ranks:
+        g = r[precond]
+        assert g["record"] == ["solve", g["iters"], True, spans]
 
 
 @pytest.mark.parametrize("what", ["matvec", "msolve"])

@@ -6,12 +6,12 @@ Joins a gloo process group on localhost, builds a mesh of 2 row shards a
 process, and prints one JSON line: the distributed SpMV's error against the
 host product, whether the overlapped (interior, then edges) matvec equals
 the unsplit one bit for bit across processes, the Jacobi and ilu0_neumann
-solves' status, iterations and true relative residual; then the same for
-the "stencil" engine (kernel B1's and the fused msolve's twins a shard):
-its matvec and msolve in the split form (edge rows recomputed while the
-strips cross processes) against the scatter form, and its const-factor
-Neumann solve, plain and with fuse_blas1.  Imports no JAX;
-tests/test_torch_parallel_gloo.py spawns it.
+solves' status, iterations, true relative residual and the recorder's
+record of each; then the same for the "stencil" engine (kernel B1's and
+the fused msolve's twins a shard): its matvec and msolve in the split
+form (edge rows recomputed while the strips cross processes) against the
+scatter form, and its const-factor Neumann solve, plain and with
+fuse_blas1.  Imports no JAX; tests/test_torch_parallel_gloo.py spawns it.
 """
 
 import json
@@ -36,6 +36,7 @@ def main() -> int:
                                                          fetch_global,
                                                          put_global)
     from cuda_mat_tpu_torch.parallel.partition import RowPartitionedBanded
+    from cuda_mat_tpu_torch.utils import timing
 
     init_distributed(f"localhost:{port}", world, rank, device="cpu")
     mesh = make_mesh(2 * world, device="cpu")
@@ -61,10 +62,13 @@ def main() -> int:
     for p in ("jacobi", "ilu0_neumann"):
         r = dist_bicgstab(a, b, mesh, SolverConfig(maxit=2000, tol=1e-8,
                                                    precond=p))
+        rec = timing.records()[-1]
         out[p] = {"status": r.status.name, "iters": r.iters,
                   "rel": float(np.linalg.norm(b - a.matvec(r.x))
                                / np.linalg.norm(b)),
-                  "x_head": [float(v) for v in r.x[:4]]}
+                  "x_head": [float(v) for v in r.x[:4]],
+                  "record": [rec.kind, rec.iters, rec.seconds("solve.loop")
+                             == r.dt_alg, sorted(rec.spans)]}
     stencil_cases(out, mesh, comm, rng)
     print(json.dumps(out), flush=True)
     torch.distributed.destroy_process_group()
