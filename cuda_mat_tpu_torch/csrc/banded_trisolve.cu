@@ -1,60 +1,95 @@
-// Hopper (sm_90a) kernel of the exact banded ILU(0) triangular sweeps.
+// Hopper (sm_90a) kernels of the exact banded ILU(0) triangular sweeps.
 //
 // Replaces two TPU kernels (cuda_mat_tpu/ops/pallas_trisolve.py:73, :149):
 //   B4b  _banded_sweep (:73 -> pallas_call :91, kernel body _sweep_kernel :46)
 //   B4a  _fused_msolve (:149 -> :170, _fused_kernel :110), which on Hopper is
-//        the forward sweep then the backward one, two calls of
-//        cmt_banded_sweep made by its front end (ops/banded_trisolve.py; the
-//        backward sweep needs all of y).
+//        the forward sweep then the backward one, two sweeps made by its
+//        front end (ops/banded_trisolve.py; the backward sweep needs all of
+//        y).
+// The TPU fed its 128 x 128 matrix unit with dense block inverses; the card
+// has no such need, so a sweep runs by one of two routes, chosen once per
+// factor by what the factor holds (ops/banded_trisolve.py: diag_route_fits):
 //
-// One sweep over nb row blocks of B rows is the blocked recurrence
-//   y_b = f_b . Wt[b] - y_{b-1} . WCt[b]      (row vector times B x B)
-// (forward over b = 0..nb-1, backward over b = nb-1..0, y_{-1} = y_{nb} = 0).
-// Wt and WCt are the host-made (nb, B, B) row-major arrays, so column j of
-// y_b sums rows k of Wt[b] and WCt[b].  Only `bw` rows of WCt[b] can be
-// nonzero (the carry rows: B-bw..B-1 forward, 0..bw-1 backward), so y_b
-// depends on y_{b-1} only through its bw carry columns, its "tail"; and Wt[b]
-// is triangular (rows k <= j forward, k >= j backward) when `tri` says so.
-// The plan (ops/banded_trisolve.py: sweep_plan) reads bw and tri off the
-// arrays, so skipping the other rows is exact for any arrays; it rounds bw
-// up to whole 16-byte rows (at most B), adding only rows that are zero.
+// * The diagonal-form route (namespace diag), wherever each triangle has at
+//   most kK = 8 distinct off-diagonal offsets (the 5- and 9-point stencils'
+//   factors have 2 and 4; the bound sizes the kernel's registers and
+//   unrolled sums) and the band fits the trisolve block.  The factor's
+//   values stay as _factorize made them, one array of n per offset and U's
+//   diagonal, and the sweep evaluates the recurrence itself:
+//     y_i = f_i - sum_o l_{i,i-o} y_{i-o}           (forward, unit L)
+//     x_i = (f_i - sum_o u_{i,i+o} x_{i+o}) / u_ii  (backward; the rows are
+//                                                    scaled by 1 / u_ii)
+//   The recurrence is linear, so the n positions (rows in sweep order) are
+//   cut into P chunks of L and solved in three launches:
+//     1. chunk_walk_kernel (mode 0), one block per chunk, all at once: each
+//        chunk from a zero entering tail (the tb positions before it, tb the
+//        largest offset in whole 16-byte rows), its exit tail s^_c;
+//     2. chunk_carry_kernel, P - 1 blocks resident together: s_0 = 0,
+//        s_{c+1} = s^_c + s_c . T_c, block c holding T_c (tb x tb, the map
+//        from entering to exit tail under f = 0, made once per factor in
+//        float64 by chunk_walk_kernel's mode 2 from each unit tail) and
+//        handing s_{c+1} to block c + 1 value by value;
+//     3. chunk_walk_kernel (mode 1), chunks 1.. again from s_c.
+//   Bounds: bytes a sweep: f and the values (nk + 1 arrays of n, nk + 2
+//   backward with U's diagonal) read by phase 1 and again by phase 3, y
+//   written once, T read once: at 1M rows in f64, 2 offsets a triangle and
+//   P = 107, ~65 MB forward and ~81 MB backward, 19-24 us at 3.35 TB/s.
+//   Serial depth: 2 L + P = 2 n / P + P dependent steps (2 x 9,346
+//   positions + 106 hand-overs there), against n for the plain recurrence.
+//   The design is bound by that chain, not by bytes.  A walk step resolves
+//   up to 128 positions (32 lanes of up to 4) but costs ~1,200 cycles of
+//   dependent loads, FMAs and log2(32) shuffle rounds (~6.3 ns a position
+//   at 1M rows on an H100); a carry step is a hand-over through L2 (~0.3
+//   us) and a sum over T_c in registers (~0.8 us), so P
+//   (ops/banded_trisolve.py: diag_chunk_shape) balances the walks' 2 n / P
+//   positions against the P steps, at most one carry block per SM.
 //
-// The TPU walked the blocks as one sequential grid.  Here the sweep is cut
-// into P chunks of m blocks in sweep order, and the recurrence, being
-// linear, is solved in three launches:
-//   1. chunk_walk_kernel (rerun 0), one thread block per chunk, all at once:
-//      g_b = f_b . Wt[b] (the triangle only) and y_b = g_b - tail . WCt[b]
-//      (the carry rows only) from a zero state entering the chunk; writes
-//      y (final for chunk 0), g, and the chunk's exit tail s^_c;
-//   2. chunk_carry_kernel, one thread block: the state entering each chunk,
-//      s_0 = 0, s_{c+1} = s^_c + s_c . T_c, with T_c (bw x bw) the product
-//      of -WCt[b][carry, carry] over chunk c's blocks, made once per factor;
-//   3. chunk_walk_kernel (rerun 1), one thread block per chunk c >= 1: the
-//      chain again from s_c over the stored g, writing y.
-// Nothing is cut off: every step uses every carry row, whatever T's size,
-// so the result is the sequential recurrence's to rounding.  The rows of
-// each column j are split over G row groups of threads (rows k = q mod G),
-// each summing its rows as four interleaved partial sums; the groups'
-// partials meet once per step in shared memory and are added in group
-// order.  Every sum runs in a fixed order, with no atomics: two launches
-// give equal bits, and the kernel agrees with its plain twins to rounding.
+// * The dense route, for every other factor whose band fits the block and
+//   for the arrays carried over from the JAX package: over nb row blocks
+//   of B rows the blocked recurrence
+//     y_b = f_b . Wt[b] - y_{b-1} . WCt[b]      (row vector times B x B)
+//   (forward over b = 0..nb-1, backward over b = nb-1..0, y_{-1} = y_{nb} =
+//   0), Wt and WCt the host-made (nb, B, B) row-major arrays, so column j of
+//   y_b sums rows k of Wt[b] and WCt[b].  Only `bw` rows of WCt[b] can be
+//   nonzero (the carry rows: B-bw..B-1 forward, 0..bw-1 backward), so y_b
+//   depends on y_{b-1} only through its bw carry columns, its "tail"; and
+//   Wt[b] is triangular (rows k <= j forward, k >= j backward) when `tri`
+//   says so.  The plan (ops/banded_trisolve.py: sweep_plan) reads bw and
+//   tri off the arrays, so skipping the other rows is exact for any
+//   arrays; it rounds bw up to whole 16-byte rows (at most B), adding only
+//   rows that are zero.  The sweep is cut into P chunks of m blocks in
+//   sweep order and solved in three launches:
+//     1. chunk_walk_kernel (rerun 0), one thread block per chunk, all at
+//        once: g_b = f_b . Wt[b] (the triangle only) and y_b = g_b - tail .
+//        WCt[b] (the carry rows only) from a zero state entering the chunk;
+//        writes y (final for chunk 0), g, and the chunk's exit tail s^_c;
+//     2. chunk_carry_kernel, one thread block: the state entering each
+//        chunk, s_0 = 0, s_{c+1} = s^_c + s_c . T_c, with T_c (bw x bw) the
+//        product of -WCt[b][carry, carry] over chunk c's blocks, made once
+//        per factor;
+//     3. chunk_walk_kernel (rerun 1), one thread block per chunk c >= 1:
+//        the chain again from s_c over the stored g, writing y.
+//   The rows of each column j are split over G row groups of threads (rows
+//   k = q mod G), each summing its rows as four interleaved partial sums;
+//   the groups' partials meet once per step in shared memory and are added
+//   in group order.  Bounds: bytes: a sweep must read Wt's triangle and
+//   WCt's carry rows once (f32, B=128, bw=100, 1M rows: 0.66 GB); this
+//   design reads the carry rows twice (phases 1 and 3) and T once, ~1.07
+//   GB.  Every operand is streamed into a ring of 2-4 stages in shared
+//   memory, one item (a slab of rows) per stage: a whole slab (WCt's carry
+//   rows, T_c) and its vector by one TMA bulk copy each, completing on the
+//   stage's mbarrier; Wt's triangle by 16-byte cp.async from every thread;
+//   where the layout is not 16-byte aligned, everything by cp.async one
+//   element at a time.  P is about the SM count.  Serial depth: 2m + P
+//   dependent steps in place of nb (m = 60, P = 131 at 1M rows on 132
+//   SMs); phase 2, one block walking P steps, is the part that stays
+//   serial.
 //
-// Bounds, and what the design does about them:
-//   * bytes: a sweep must read Wt's triangle and WCt's carry rows once
-//     (f32, B=128, bw=100, 1M rows: 0.66 GB); this design reads the carry
-//     rows twice (phases 1 and 3) and T once, ~1.07 GB.  Every operand is
-//     streamed into a ring of 2-4 stages in shared memory, one item (a slab
-//     of rows) per stage, so the next items' bytes arrive while one is
-//     summed: a whole slab (WCt's carry rows, T_c) and its vector by one
-//     TMA bulk copy each, completing on the stage's mbarrier; Wt's
-//     triangle by 16-byte cp.async from every thread; where the layout is
-//     not 16-byte aligned, everything by cp.async one element at a time.
-//     P is about the SM count, so phases 1 and 3 pull on every SM at once.
-//   * serial depth: 2m + P dependent steps in place of nb (m = 60, P = 131
-//     at 1M rows on 132 SMs).  A step waits for its items, one barrier per
-//     item and one for the partial sums; up to 1024 threads (8 row groups
-//     at B = 128) share a step's arithmetic.  Phase 2, one block walking P
-//     steps, is the part that stays serial.
+// Nothing is cut off on either route: every step uses every carry entry,
+// whatever T's size, so the result is the sequential recurrence's to
+// rounding.  Every sum runs in a fixed order, with no atomics: two
+// launches give equal bits, and the kernels agree with their plain twins
+// to rounding.
 //
 // Launchers are extern "C" for ctypes: they launch on the caller's stream,
 // never synchronise, allocate nothing, and return the first
@@ -548,6 +583,469 @@ int sweep_typed(const void* f, const void* wt, const void* wct,
   return launch_sweep<T>(a, st);
 }
 
+// ---------------------------------------------------------------------------
+// The diagonal-form route: one sweep over the ILU(0) factor's own
+// diagonals (see the note at the top of this file).
+// ---------------------------------------------------------------------------
+namespace diag {
+
+constexpr int kK = 8;           // off-diagonal offsets a triangle may have
+constexpr int kThreads = 128;   // warp 0 walks; warps 1-3 stage
+constexpr int kHelpers = kThreads - 32;
+constexpr int kTile = 512;      // positions of a tile
+constexpr int kStages = 4;      // tiles in the ring: 3 load while 1 walks
+constexpr int kMaxR = 4;        // rows a lane of the walk takes a step
+constexpr int kCarryCols = 128; // phase 2: columns of a pass (at most) ...
+constexpr int kCarryG = 8;      // ... times row groups
+constexpr int kCarryThreads = kCarryCols * kCarryG;
+constexpr int kCarryRegTail = 128;   // tails whose T_c fits registers:
+constexpr int kCarryM = kCarryRegTail / kCarryG;   // rows a thread
+constexpr int kMaxTail = 1024;  // tb: the route's bandwidth limit
+constexpr unsigned kFull = 0xffffffffu;
+constexpr long long kMaxPolls = 1LL << 22;   // ~seconds: a carry block that
+                                             // waits longer goes on with the
+                                             // sentinel's NaN, which the
+                                             // answer then shows
+
+struct Offsets {
+  int o[kK];   // descending, each in 1..tb
+};
+
+// mode 0: every chunk from a zero entering tail, its exit tail to shat;
+// mode 1: chunks 1.. again from the tails in s;
+// mode 2: the transfer matrices: chunk blockIdx.x from the unit tail
+//         e_{blockIdx.y} with f = 0, its exit tail to row blockIdx.y of
+//         T_c (P - 1 chunks).
+template <typename T>
+struct Args {
+  const T* f;      // n (null in mode 2)
+  const T* vals;   // (nk, n): vals[k n + i], the entry of row i at column
+                   // i - o[k] (forward) or i + o[k] (backward)
+  const T* diag;   // n, U's diagonal (backward; null forward: unit L)
+  T* s;            // (P, tb) entering tails, row c for chunk c (phase 2
+                   // writes them)
+  T* y;            // n
+  T* shat;         // (P, tb) exit tails
+  T* tmat;         // (P - 1, tb, tb)
+  T* hand;         // (P, tb): phase 2's hand-over, the sentinel between
+                   // launches
+  long long n;
+  int nk, tb, L, forward, mode, hmask;
+  int g, R, tile;   // lanes and rows a lane of a walk step; positions a
+                    // tile (whole steps, at most kTile)
+  Offsets off;
+};
+
+// One chunk of L positions in sweep order (row p forward, n - 1 - p
+// backward).  f, the factor's values and (backward) U's diagonal stream
+// through a ring of kStages tiles of kTile positions, copied by warps 1-3
+// with cp.async three tiles ahead of the walk; each copier scales the
+// backward rows it copied by 1 / u_ii once they land, and writes the
+// previous tile's y.  The walk's values sit in a ring `hist` of hmask + 1
+// >= tb + 2 kTile.  Warp 0 walks a tile in steps of g R rows, lane j
+// rows j R .. j R + R - 1 of the step (g a power of two, at most 32; g R
+// at most every offset but the chain's, so those terms read earlier
+// steps): acc_i = f'_i - sum_k v'_k[i] y_{i - o[k]} (descending offsets);
+// then, with an offset-1 chain (ONE), y_i = acc_i - v'_1[i] y_{i-1}: each
+// lane composes its rows' affine maps y -> A y + B, an inclusive scan over
+// the lanes (Hillis-Steele, log2 g shuffles) from the last step's last y
+// gives each lane the y entering its rows, and the lane walks them.  One
+// barrier a tile.
+template <typename T, int NK, bool ONE>
+__global__ void __launch_bounds__(kThreads)
+chunk_walk_kernel(const Args<T> a) {
+  constexpr int NL = ONE ? NK - 1 : NK;   // terms before the chain's
+  constexpr int W = (NK + 2) * kTile;     // a stage: f, values, diagonal
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stage = reinterpret_cast<T*>(smem_raw);   // kStages x W
+  T* hist = stage + kStages * W;
+  const int tid = threadIdx.x;
+  const long long c = blockIdx.x + (a.mode == 1 ? 1 : 0);
+  const long long p0 = c * a.L;
+  const int len = static_cast<int>(min(static_cast<long long>(a.L),
+                                       a.n - p0));
+  const int ntiles = (len + a.tile - 1) / a.tile;
+  const bool writes_y =
+      a.mode == 1 || (a.mode == 0 && (c == 0 || a.tb == 0));
+  for (int k = tid; k < a.tb; k += kThreads) {
+    T v = T(0);
+    if (a.mode == 1)
+      v = a.s[c * a.tb + k];
+    else if (a.mode == 2 && k == static_cast<int>(blockIdx.y))
+      v = T(1);
+    hist[(k - a.tb) & a.hmask] = v;
+  }
+  auto row_of = [&](int q) {
+    const long long p = p0 + q;
+    return a.forward ? p : a.n - 1 - p;
+  };
+
+  // warps 1-3: copier h handles positions h, h + kHelpers, ... of a tile
+  const int h = tid - 32;
+  auto fetch = [&](int t) {
+    if (t < ntiles) {
+      T* b = stage + (t % kStages) * W;
+      const int q0 = t * a.tile, cnt = min(a.tile, len - q0);
+      for (int i = h; i < cnt; i += kHelpers) {
+        const long long row = row_of(q0 + i);
+        if (a.f)
+          cp_async<sizeof(T)>(b + i, a.f + row);
+        else
+          b[i] = T(0);
+#pragma unroll
+        for (int k = 0; k < NK; ++k)
+          cp_async<sizeof(T)>(b + (1 + k) * kTile + i, a.vals + k * a.n + row);
+        if (!a.forward)
+          cp_async<sizeof(T)>(b + (NK + 1) * kTile + i, a.diag + row);
+      }
+    }
+    cp_commit();
+  };
+  auto scale = [&](int t) {   // backward: rows by 1 / u_ii, once landed
+    if (a.forward || t >= ntiles) return;
+    T* b = stage + (t % kStages) * W;
+    const int cnt = min(a.tile, len - t * a.tile);
+    for (int i = h; i < cnt; i += kHelpers) {
+      const T r = T(1) / b[(NK + 1) * kTile + i];
+#pragma unroll
+      for (int k = 0; k <= NK; ++k) b[k * kTile + i] *= r;
+    }
+  };
+  auto write_y = [&](int t, int first, int step) {
+    if (!writes_y) return;
+    const int q0 = t * a.tile, cnt = min(a.tile, len - q0);
+    for (int i = first; i < cnt; i += step)
+      a.y[row_of(q0 + i)] = hist[(q0 + i) & a.hmask];
+  };
+
+  if (tid >= 32) {
+    for (int t = 0; t < kStages - 1; ++t) fetch(t);
+    cp_wait(kStages - 2);
+    scale(0);
+  }
+  __syncthreads();
+  T prev = hist[-1 & a.hmask];   // y at position -1 (the chain's)
+  for (int t = 0; t < ntiles; ++t) {
+    if (tid < 32) {
+      const T* b = stage + (t % kStages) * W;
+      const int q0 = t * a.tile, cnt = min(a.tile, len - q0);
+      for (int r0 = 0; r0 < cnt; r0 += a.g * a.R) {
+        const int rows = min(a.g * a.R, cnt - r0);
+        const int first = r0 + tid * a.R;   // this lane's first row
+        // acc: row r's terms before the chain's; (pa, pb): the map from the
+        // y entering the lane to row r's y, so the rows apply at once
+        T acc[kMaxR], pa[kMaxR], pb[kMaxR];
+        T A = T(1), B = T(0);               // the lane's map
+#pragma unroll
+        for (int r = 0; r < kMaxR; ++r) {
+          const int i = first + r;
+          if (r >= a.R || i >= r0 + rows) break;
+          const int q = q0 + i;
+          T v = b[i];
+#pragma unroll
+          for (int k = 0; k < NL; ++k)
+            v = fma_t(-b[(1 + k) * kTile + i],
+                      hist[(q - a.off.o[k]) & a.hmask], v);
+          acc[r] = v;
+          if constexpr (ONE) {
+            const T am = -b[NK * kTile + i];
+            B = fma_t(am, B, v);
+            A *= am;
+            pa[r] = A;
+            pb[r] = B;
+          }
+        }
+        T in = prev;   // y entering this lane's rows
+        if constexpr (ONE) {
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            if (d >= a.g) break;
+            const T Ap = __shfl_up_sync(kFull, A, d);
+            const T Bp = __shfl_up_sync(kFull, B, d);
+            if (tid >= d) {
+              B = fma_t(A, Bp, B);
+              A *= Ap;
+            }
+          }
+          const T out = fma_t(A, prev, B);   // y at the lane's last row
+          const T up = __shfl_up_sync(kFull, out, 1);
+          if (tid > 0) in = up;
+          prev = __shfl_sync(kFull, out, (rows - 1) / a.R);
+        }
+#pragma unroll
+        for (int r = 0; r < kMaxR; ++r) {
+          const int i = first + r;
+          if (r >= a.R || i >= r0 + rows) break;
+          T y = acc[r];
+          if constexpr (ONE) y = fma_t(pa[r], in, pb[r]);
+          hist[(q0 + i) & a.hmask] = y;
+        }
+        __syncwarp();
+      }
+    } else {
+      if (t > 0) write_y(t - 1, h, kHelpers);
+      cp_wait(kStages - 3);
+      scale(t + 1);
+      fetch(t + kStages - 1);
+    }
+    __syncthreads();
+  }
+  cp_wait(0);
+  if (ntiles > 0) write_y(ntiles - 1, tid, kThreads);
+  if (a.mode == 0) {
+    for (int k = tid; k < a.tb; k += kThreads)
+      a.shat[c * a.tb + k] = hist[(len - a.tb + k) & a.hmask];
+  } else if (a.mode == 2) {
+    T* row = a.tmat + (c * a.tb + blockIdx.y) * a.tb;
+    for (int k = tid; k < a.tb; k += kThreads)
+      row[k] = hist[(len - a.tb + k) & a.hmask];
+  }
+}
+
+// Phase 2's hand-over: each value of s_c travels alone, through a slot
+// that holds a NaN no arithmetic makes (the sentinel) between launches.
+__device__ __forceinline__ bool is_sentinel(double v) {
+  return __double_as_longlong(v) == 0x7ff4dead0badbeefLL;
+}
+__device__ __forceinline__ bool is_sentinel(float v) {
+  return __float_as_int(v) == 0x7fa0beef;
+}
+__device__ __forceinline__ void sentinel(double* v) {
+  *v = __longlong_as_double(0x7ff4dead0badbeefLL);
+}
+__device__ __forceinline__ void sentinel(float* v) {
+  *v = __int_as_float(0x7fa0beef);
+}
+__device__ __forceinline__ double load_relaxed(const double* p) {
+  double v;
+  asm volatile("ld.relaxed.gpu.global.f64 %0, [%1];\n"
+               : "=d"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float load_relaxed(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_relaxed(double* p, double v) {
+  asm volatile("st.relaxed.gpu.global.f64 [%0], %1;\n" ::"l"(p), "d"(v)
+               : "memory");
+}
+__device__ __forceinline__ void store_relaxed(float* p, float v) {
+  asm volatile("st.relaxed.gpu.global.f32 [%0], %1;\n" ::"l"(p), "f"(v)
+               : "memory");
+}
+
+// Phase 2: block c of P - 1, all resident at once (a cooperative launch),
+// makes s_{c+1} = s^_c + s_c . T_c.  Thread (j, q) of a block of kCarryG
+// row groups of `cols` columns (the tail in whole warps, at most
+// kCarryCols) sums column j over the rows k = q mod kCarryG: it loads those
+// entries of T_c once, into registers where tb <= kCarryRegTail (M rows a
+// thread, M > 0), else it reads them from T_c in global memory (M = 0), so
+// a step reads no more than s_c.  Each block loads its T_c and s^_c while
+// the chain runs, then reads s_c from block c - 1's hand-over slots (s_0 =
+// 0), each thread polling its values until they are not the sentinel and
+// putting the sentinel back; sums its rows as four interleaved partial
+// sums; adds the groups' partials by a tree (q + 4, + 2, + 1, in that
+// order); and writes s_{c+1} for phase 3 and, but in the last block, into
+// its own slots.  Each value is one aligned word, so no fence orders the
+// hand-over.
+template <typename T, int M>
+__global__ void __launch_bounds__(kCarryThreads)
+chunk_carry_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tb = a.tb;
+  const long long c = blockIdx.x;
+  const int cols = blockDim.x / kCarryG;    // the tail in warps, at most
+                                            // kCarryCols
+  const int j = threadIdx.x % cols, q = threadIdx.x / cols;
+  T* sv = reinterpret_cast<T*>(smem_raw);   // s_c
+  T* red = sv + kMaxTail;                   // kCarryG x cols partials
+  const T* tg = a.tmat + c * tb * tb;
+  T treg[M > 0 ? M : 1];
+  if constexpr (M > 0) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int k = q + m * kCarryG;
+      treg[m] = j < tb && k < tb ? tg[k * tb + j] : T(0);
+    }
+  }
+  for (int j0 = 0; j0 < tb; j0 += cols) {
+    const int jj = j0 + j;
+    const T hat = jj < tb && q == 0 ? a.shat[c * tb + jj] : T(0);
+    if (j0 == 0) {
+      for (int k = threadIdx.x; k < tb; k += blockDim.x) {
+        T v = T(0);
+        if (c > 0) {
+          T* slot = a.hand + c * tb + k;
+          long long polls = 0;
+          do {
+            v = load_relaxed(slot);
+          } while (is_sentinel(v) && ++polls < kMaxPolls);
+          T z;
+          sentinel(&z);
+          store_relaxed(slot, z);
+        }
+        sv[k] = v;
+      }
+      __syncthreads();
+    }
+    T acc[4] = {T(0), T(0), T(0), T(0)};
+    if constexpr (M > 0) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int k = q + m * kCarryG;
+        if (k < tb) acc[m & 3] = fma_t(sv[k], treg[m], acc[m & 3]);
+      }
+    } else if (jj < tb) {
+      for (int k = q, m = 0; k < tb; k += kCarryG, ++m)
+        acc[m & 3] = fma_t(sv[k], tg[static_cast<long long>(k) * tb + jj],
+                           acc[m & 3]);
+    }
+    T* r = red + q * cols + j;
+    *r = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    for (int half = kCarryG / 2; half > 0; half /= 2) {
+      __syncthreads();
+      if (q < half) *r += r[half * cols];
+    }
+    if (q == 0 && jj < tb) {
+      const T out = hat + *r;
+      a.s[(c + 1) * tb + jj] = out;
+      if (c + 1 < gridDim.x) store_relaxed(a.hand + (c + 1) * tb + jj, out);
+    }
+    __syncthreads();
+  }
+}
+
+// Phase 2's launch: T_c in registers where the tail fits kCarryRegTail.
+template <typename T>
+int launch_carry(const Args<T>& a, int P, cudaStream_t st) {
+  const size_t bytes =
+      (kMaxTail + static_cast<size_t>(kCarryG) * kCarryCols) * sizeof(T);
+  void* kern = a.tb <= kCarryRegTail
+                   ? reinterpret_cast<void*>(chunk_carry_kernel<T, kCarryM>)
+                   : reinterpret_cast<void*>(chunk_carry_kernel<T, 0>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Args<T> args = a;
+  void* params[] = {&args};
+  int cols = (a.tb + 31) / 32 * 32;
+  cols = cols < kCarryCols ? cols : kCarryCols;
+  err = cudaLaunchCooperativeKernel(kern, dim3(static_cast<unsigned>(P - 1)),
+                                    dim3(static_cast<unsigned>(cols * kCarryG)),
+                                    params, bytes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NK, bool ONE>
+int launch_walk_nk(const Args<T>& a, unsigned gx, unsigned gy,
+                   cudaStream_t st) {
+  const size_t bytes =
+      (kStages * (NK + 2) * kTile + static_cast<size_t>(a.hmask) + 1) *
+      sizeof(T);
+  auto kern = chunk_walk_kernel<T, NK, ONE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3(gx, gy), kThreads, bytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NK>
+int launch_walk_k(const Args<T>& a, unsigned gx, unsigned gy,
+                  cudaStream_t st) {
+  if constexpr (NK > 0) {
+    if (a.off.o[NK - 1] == 1) return launch_walk_nk<T, NK, true>(a, gx, gy, st);
+  }
+  return launch_walk_nk<T, NK, false>(a, gx, gy, st);
+}
+
+template <typename T>
+int launch_walk(const Args<T>& a, unsigned gx, unsigned gy,
+                cudaStream_t st) {
+  switch (a.nk) {
+    case 0: return launch_walk_k<T, 0>(a, gx, gy, st);
+    case 1: return launch_walk_k<T, 1>(a, gx, gy, st);
+    case 2: return launch_walk_k<T, 2>(a, gx, gy, st);
+    case 3: return launch_walk_k<T, 3>(a, gx, gy, st);
+    case 4: return launch_walk_k<T, 4>(a, gx, gy, st);
+    case 5: return launch_walk_k<T, 5>(a, gx, gy, st);
+    case 6: return launch_walk_k<T, 6>(a, gx, gy, st);
+    case 7: return launch_walk_k<T, 7>(a, gx, gy, st);
+    case 8: return launch_walk_k<T, 8>(a, gx, gy, st);
+    default: return kBadArgs;
+  }
+}
+
+bool bad_args(long long n, int nk, const int* offs, int tb, int L, int P,
+              int forward, const void* diag) {
+  if (n < 1 || nk < 0 || nk > kK || tb < 0 || tb > kMaxTail || L < 1 ||
+      P < 1 || (n + L - 1) / L != P || (forward == 0 && diag == nullptr))
+    return true;
+  for (int k = 0; k < nk; ++k)
+    if (offs[k] < 1 || offs[k] > tb || (k > 0 && offs[k] >= offs[k - 1]))
+      return true;
+  return false;
+}
+
+template <typename T>
+Args<T> args_of(const void* f, const void* vals, const void* dg,
+                const void* tmat, void* y, void* shat, void* s, void* hand,
+                long long n, int nk, const int* offs, int tb, int L,
+                int forward) {
+  Args<T> a{static_cast<const T*>(f), static_cast<const T*>(vals),
+            static_cast<const T*>(dg), static_cast<T*>(s),
+            static_cast<T*>(y), static_cast<T*>(shat),
+            static_cast<T*>(const_cast<void*>(tmat)), static_cast<T*>(hand),
+            n, nk, tb, L,
+            forward != 0 ? 1 : 0, 0, 0, 32, 1, kTile, {}};
+  int H = 1;
+  while (H < tb + 2 * kTile) H *= 2;
+  a.hmask = H - 1;
+  // a walk step: g lanes (a power of two, at most 32) of R rows, g R at
+  // most every offset but the chain's; a tile whole steps
+  const int nl = nk > 0 && offs[nk - 1] == 1 ? nk - 1 : nk;
+  const int shortest = nl > 0 ? offs[nl - 1] : 32 * kMaxR;
+  while (a.g > shortest) a.g /= 2;
+  a.R = shortest / a.g < kMaxR ? shortest / a.g : kMaxR;
+  a.tile = kTile / (a.g * a.R) * (a.g * a.R);
+  for (int k = 0; k < kK; ++k) a.off.o[k] = k < nk ? offs[k] : 0;
+  return a;
+}
+
+// The three launches of a sweep; one where there is a single chunk or no
+// tail to carry.
+template <typename T>
+int sweep(Args<T> a, int P, cudaStream_t st) {
+  a.mode = 0;
+  int rc = launch_walk(a, static_cast<unsigned>(P), 1, st);
+  if (rc != 0 || P == 1 || a.tb == 0) return rc;
+  rc = launch_carry(a, P, st);
+  if (rc != 0) return rc;
+  a.mode = 1;
+  return launch_walk(a, static_cast<unsigned>(P - 1), 1, st);
+}
+
+template <typename T>
+int transfer(Args<T> a, int P, cudaStream_t st) {
+  if (P == 1 || a.tb == 0) return 0;
+  a.mode = 2;
+  a.f = nullptr;
+  return launch_walk(a, static_cast<unsigned>(P - 1),
+                     static_cast<unsigned>(a.tb), st);
+}
+
+}  // namespace diag
+
 }  // namespace
 
 extern "C" {
@@ -570,6 +1068,59 @@ int cmt_banded_sweep(int dtype, const void* f, const void* wt,
   if (dtype == 1)
     return sweep_typed<double>(f, wt, wct, tmat, y, g, shat, s, nb, block,
                                bw, m, chunks, forward, tri, st);
+  return kBadArgs;
+}
+
+// B4b of the diagonal-form route; twice, B4a.  dtype: 0 = float32,
+// 1 = float64.  f, y: n (y must not alias f); vals: (nk, n), the factor's
+// values by offset; offs: nk distances, descending, host memory; diag: n,
+// U's diagonal (backward only, else null); tmat: (chunks - 1, tb, tb);
+// scratch shat and s: chunks * tb; hand: chunks * tb, every element the
+// sentinel NaN (0x7ff4dead0badbeef / 0x7fa0beef; so again after the
+// sweep).  rows positions a chunk, chunks = ceil(n / rows);
+// chunks - 1 blocks of phase 2 must fit on the card at once.
+int cmt_diag_sweep(int dtype, const void* f, const void* vals,
+                   const void* dg, const void* tmat, void* y, void* shat,
+                   void* s, void* hand, long long n, int nk, const int* offs,
+                   int tb, int rows, int chunks, int forward, void* stream) {
+  if (diag::bad_args(n, nk, offs, tb, rows, chunks, forward, dg))
+    return kBadArgs;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return diag::sweep(diag::args_of<float>(f, vals, dg, tmat, y, shat, s,
+                                            hand, n, nk, offs, tb, rows,
+                                            forward),
+                       chunks, st);
+  if (dtype == 1)
+    return diag::sweep(diag::args_of<double>(f, vals, dg, tmat, y, shat, s,
+                                             hand, n, nk, offs, tb, rows,
+                                             forward),
+                       chunks, st);
+  return kBadArgs;
+}
+
+// The transfer matrices T_c (c < chunks - 1) of one sweep into tmat, row k
+// of T_c the exit tail of chunk c from the unit tail e_k with f = 0; in
+// the arrays' dtype (the route makes them in float64).
+int cmt_diag_transfer(int dtype, const void* vals, const void* dg,
+                      void* tmat, long long n, int nk, const int* offs,
+                      int tb, int rows, int chunks, int forward,
+                      void* stream) {
+  if (diag::bad_args(n, nk, offs, tb, rows, chunks, forward, dg))
+    return kBadArgs;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return diag::transfer(
+        diag::args_of<float>(nullptr, vals, dg, tmat, nullptr, nullptr,
+                             nullptr, nullptr, n, nk, offs, tb, rows,
+                             forward),
+        chunks, st);
+  if (dtype == 1)
+    return diag::transfer(
+        diag::args_of<double>(nullptr, vals, dg, tmat, nullptr, nullptr,
+                              nullptr, nullptr, n, nk, offs, tb, rows,
+                              forward),
+        chunks, st);
   return kBadArgs;
 }
 

@@ -109,11 +109,16 @@ def stencil2d_library() -> ctypes.CDLL:
 
 
 def trisolve_library() -> ctypes.CDLL:
-    """The banded triangular sweep B4b, which B4a runs twice
+    """The banded triangular sweep B4b, which B4a runs twice, on both
+    routes: the dense block inverses and the factor's own diagonals
     (``csrc/banded_trisolve.cu``)."""
     return _load("banded_trisolve.cu", "libcmt_trisolve", {
         "cmt_banded_sweep": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                             _I, _I, _I, _I, _P]}, headers=("tma_ring.cuh",))
+                             _I, _I, _I, _I, _P],
+        "cmt_diag_sweep": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P,
+                           _I, _I, _I, _I, _P],
+        "cmt_diag_transfer": [_I, _P, _P, _P, _LL, _I, _P, _I, _I, _I, _I,
+                              _P]}, headers=("tma_ring.cuh",))
 
 
 def dia_library() -> ctypes.CDLL:
@@ -754,6 +759,52 @@ def banded_sweep(f: torch.Tensor, wt: torch.Tensor, wct: torch.Tensor, plan,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "banded_sweep")
     return y
+
+
+def diag_sweep(f: torch.Tensor, vals: torch.Tensor, offsets, diag, plan,
+               forward: bool) -> torch.Tensor:
+    """Launch kernel B4b of the diagonal-form route on ``f``'s device and
+    current stream: the chunked sweep of ``plan`` (a
+    ``banded_trisolve.DiagPlan``) over the factor's values ``vals`` (one row
+    per offset of ``offsets``) and, backward, U's diagonal ``diag``; up to
+    three launches, over scratch for the chunks' exit and entry tails and
+    the plan's hand-over slots."""
+    lib = trisolve_library()
+    _check_cuda(f, vals, plan.t, plan.hand,
+                *(() if diag is None else (diag,)))
+    y = torch.empty_like(f)
+    shat, s = torch.empty(2, max(plan.chunks * plan.tb, 1), dtype=f.dtype,
+                          device=f.device)
+    off = _offset_array(tuple(offsets))
+    with torch.cuda.device(f.device):
+        rc = lib.cmt_diag_sweep(
+            _DTYPE_CODE[f.dtype], f.data_ptr(), vals.data_ptr(),
+            None if diag is None else diag.data_ptr(), plan.t.data_ptr(),
+            y.data_ptr(), shat.data_ptr(), s.data_ptr(), plan.hand.data_ptr(),
+            f.shape[0], len(offsets), off.ctypes.data, plan.tb, plan.rows,
+            plan.chunks,
+            int(forward), torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, rc, "diag_sweep")
+    return y
+
+
+def diag_transfer(vals: torch.Tensor, offsets, diag, n: int, tb: int,
+                  rows: int, chunks: int, forward: bool) -> torch.Tensor:
+    """The transfer matrices ``(chunks - 1, tb, tb)`` of one sweep of the
+    diagonal-form route, made on ``vals``' device by kernel B4b's walk from
+    each unit tail, in ``vals``' dtype."""
+    lib = trisolve_library()
+    _check_cuda(vals, *(() if diag is None else (diag,)))
+    t = torch.empty(chunks - 1, tb, tb, dtype=vals.dtype, device=vals.device)
+    off = _offset_array(tuple(offsets))
+    with torch.cuda.device(vals.device):
+        rc = lib.cmt_diag_transfer(
+            _DTYPE_CODE[vals.dtype], vals.data_ptr(),
+            None if diag is None else diag.data_ptr(), t.data_ptr(), n,
+            len(offsets), off.ctypes.data, tb, rows, chunks, int(forward),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, rc, "diag_transfer")
+    return t
 
 
 def dia_spmv(data: torch.Tensor, x_pad: torch.Tensor, offsets,

@@ -1,7 +1,8 @@
 """Preconditioners with an ``msolve`` method (counterpart of
 :mod:`cuda_mat_tpu.precond.preconditioners`): the identity, Jacobi, exact
-ILU(0) through the banded triangular solver (kernels B4a/B4b) where the
-band fits one block and the generic blocked solver elsewhere, the adapter
+ILU(0) through the banded triangular solver (kernels B4a/B4b, over the
+factor's diagonals or its block inverses) where the band fits one block
+and the generic blocked solver elsewhere, the adapter
 that runs a true-n preconditioner on padded vectors, and the Neumann-series
 ILU(0) — on a padded operator's layout, constant factors on the gap-strided
 stencil layout (kernels B1/B2/B5) or the exact factors as banded DIA operators
@@ -31,7 +32,8 @@ from cuda_mat_tpu_torch.formats.csr import CSRMatrix
 from cuda_mat_tpu_torch.formats.reorder import bandwidth
 from cuda_mat_tpu_torch.native import loader as _native
 from cuda_mat_tpu_torch.ops import _kernels
-from cuda_mat_tpu_torch.ops.banded_trisolve import BandedTriSolver
+from cuda_mat_tpu_torch.ops.banded_trisolve import (
+    BandedTriSolver, DiagTriSolver, diag_route_fits)
 from cuda_mat_tpu_torch.ops.dia_spmv import PallasDIAOperator
 from cuda_mat_tpu_torch.ops.operators import make_operator
 from cuda_mat_tpu_torch.ops.stencil import (
@@ -75,28 +77,34 @@ class JacobiPreconditioner:
 @dataclasses.dataclass(frozen=True)
 class ILU0Preconditioner:
     """ILU(0): zero-fill incomplete factors on A's pattern, applied on
-    true-n vectors by the banded triangular solver (:class:`~cuda_mat_tpu_
-    torch.ops.banded_trisolve.BandedTriSolver`) or the generic blocked one
+    true-n vectors by the banded triangular solver, on its diagonal-form
+    route (:class:`~cuda_mat_tpu_torch.ops.banded_trisolve.DiagTriSolver`)
+    or its dense one (:class:`~cuda_mat_tpu_torch.ops.banded_trisolve.
+    BandedTriSolver`), or by the generic blocked one
     (:class:`~cuda_mat_tpu_torch.ops.trisolve.BlockTriangularSolver`).
     Factorization happens once at setup on the host, as the reference
     times it apart (pbicgstab.cu:356-363); the native factorizer is used
     when it builds."""
 
-    tri: object  # BandedTriSolver | BlockTriangularSolver
+    tri: object  # DiagTriSolver | BandedTriSolver | BlockTriangularSolver
 
     @classmethod
     def from_csr(cls, csr, block: int = 256, dtype=torch.float64, *, device,
                  milu_omega: float = 0.0) -> "ILU0Preconditioner":
-        """``block``: the trisolve block B; ``device``: where the block
-        arrays live, and so which route the msolve takes (the kernels on a
-        card, the plain twins on the CPU).  ``milu_omega``: relaxed
-        modified-ILU(0) factor values (0 = reference-parity ILU(0)).
+        """``block``: the trisolve block B, the banded routes' bandwidth
+        limit; ``device``: where the solver's arrays live, and so which
+        route the msolve takes (the kernels on a card, the plain twins on
+        the CPU).  ``milu_omega``: relaxed modified-ILU(0) factor values (0
+        = reference-parity ILU(0)).
 
         The JAX package picks its engine by backend: the Pallas banded
         kernel on a TPU when the band fits the block, else the generic
-        blocked solver.  Here the band decides on every device: the banded
-        engine (kernels B4a/B4b) when the bandwidth is at most ``block``,
-        else :class:`~cuda_mat_tpu_torch.ops.trisolve.BlockTriangularSolver`
+        blocked solver.  Here the factor decides on every device: where the
+        bandwidth is at most ``block``, the diagonal-form route (kernels
+        B4a/B4b over the factor's own diagonals) when each triangle has at
+        most ``DIAG_MAX_OFFSETS`` offsets, else the dense route (B4a/B4b
+        over block inverses); a wider band takes
+        :class:`~cuda_mat_tpu_torch.ops.trisolve.BlockTriangularSolver`
         (stock torch ops, as the JAX package's XLA loop)."""
         # the block inverses are O(n·B) floats: refuse what would eat
         # gigabytes at setup (the JAX package's guard and message)
@@ -108,12 +116,23 @@ class ILU0Preconditioner:
                 f" GiB of block inverses (n={csr.n}, block={block}); use"
                 f" precond='jacobi', solve_refined, or the distributed"
                 f" bjacobi_ilu0 for systems this large")
-        engine = BandedTriSolver if bandwidth(csr) <= block \
-            else BlockTriangularSolver
+        if bandwidth(csr) > block:
+            engine = BlockTriangularSolver
+        elif diag_route_fits(csr, block):
+            engine = DiagTriSolver
+        else:
+            engine = BandedTriSolver
         with timing.span("precond.factor"):
             mvals = _factorize(csr, milu_omega)
         return cls(engine.from_factor(csr, mvals, block=block, dtype=dtype,
                                       device=device))
+
+    @property
+    def route(self) -> str:
+        """The trisolve route taken: "diag" (the factor's diagonals),
+        "dense" (block inverses) or "blocked" (the generic solver)."""
+        return {DiagTriSolver: "diag", BandedTriSolver: "dense"}.get(
+            type(self.tri), "blocked")
 
     def msolve(self, f: torch.Tensor) -> torch.Tensor:
         return self.tri.msolve(f)

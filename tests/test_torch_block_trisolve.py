@@ -26,7 +26,7 @@ from cuda_mat_tpu.reference.cpu_solvers import ilu0_factorize
 
 import cuda_mat_tpu_torch as ct
 from cuda_mat_tpu_torch.ops import trisolve as ttri
-from cuda_mat_tpu_torch.ops.banded_trisolve import BandedTriSolver
+from cuda_mat_tpu_torch.ops.banded_trisolve import DiagTriSolver
 from cuda_mat_tpu_torch.precond import preconditioners as tpre
 
 torch.set_num_threads(1)
@@ -97,11 +97,12 @@ def test_f32_arrays_are_the_f64_arrays_rounded():
         1e-5 * float(t64.msolve(f).abs().max())
 
 
-@pytest.mark.parametrize("block,engine", [(64, BandedTriSolver),
+@pytest.mark.parametrize("block,engine", [(64, DiagTriSolver),
                                           (16, ttri.BlockTriangularSolver)])
 def test_ilu0_engine_rule(block, engine):
-    """Bandwidth 31 (mat900): the banded engine when it fits the block,
-    the blocked one when it does not."""
+    """Bandwidth 31 (mat900): the banded engine when it fits the block (its
+    diagonal-form route: four offsets a triangle), the blocked one when it
+    does not."""
     a = ct.load_mm_sparse_matrix(os.path.join(ROOT, "data", "mat900.mtx"))
     pre = tpre.ILU0Preconditioner.from_csr(a, block=block, device="cpu")
     assert type(pre.tri) is engine

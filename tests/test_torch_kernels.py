@@ -25,6 +25,9 @@ from cuda_mat_tpu_torch.ops import stencil as tst
 from cuda_mat_tpu_torch.ops import stencil2d as t2d
 from cuda_mat_tpu_torch.precond.preconditioners import (ILU0Preconditioner,
                                                         NeumannILUPreconditioner)
+from cuda_mat_tpu_torch.reference.cpu_solvers import ilu0_factorize
+from cuda_mat_tpu_torch.formats.coo import COOMatrix
+from cuda_mat_tpu_torch.formats.csr import CSRMatrix
 
 torch.set_num_threads(1)
 
@@ -88,9 +91,12 @@ def test_missing_build_raises_and_never_falls_back(monkeypatch):
 
 
 def _tri(side=12, block=16, dtype=torch.float64, device="cpu"):
+    """The dense route's solver (block inverses) on an ILU(0) factor,
+    whatever route ILU0Preconditioner would take for it."""
     a = tprob.banded_laplacian(side)
-    return a, ILU0Preconditioner.from_csr(a, block=block, dtype=dtype,
-                                          device=device).tri
+    return a, tbt.BandedTriSolver.from_factor(a, ilu0_factorize(a),
+                                              block=block, dtype=dtype,
+                                              device=device)
 
 
 def test_trisolve_cpu_tensors_run_the_twins_and_count_nothing():
@@ -151,6 +157,166 @@ def test_trisolve_kernel_path_requires_the_plan(monkeypatch):
         tbt.fused_msolve_padded(meta, w, w, w, w)
     assert tbt.fused_msolve_padded.launches == 0
     assert tbt.banded_sweep_padded.launches == 0
+
+
+def _offset_matrix(n, lower, upper):
+    """A diagonally dominant matrix on exactly the given offsets."""
+    rng = np.random.default_rng(0)
+    rows, cols, vals = [np.arange(n)], [np.arange(n)], [
+        np.full(n, 2.0 + len(lower) + len(upper))]
+    for sign, dists in ((-1, lower), (1, upper)):
+        for o in dists:
+            i = np.arange(o, n) if sign < 0 else np.arange(n - o)
+            rows += [i]
+            cols += [i + sign * o]
+            vals += [rng.uniform(-1.0, -0.2, i.shape[0])]
+    return CSRMatrix.from_coo(COOMatrix(
+        n, n, np.concatenate(rows).astype(np.int32),
+        np.concatenate(cols).astype(np.int32), np.concatenate(vals)))
+
+
+DIAG_MATS = {"grid300x20": lambda: tprob.grid_laplacian(300, 20),
+             "grid97x13": lambda: tprob.grid_laplacian(97, 13),
+             "offsets31-29": lambda: _offset_matrix(3000, (31, 30, 29, 1),
+                                                    (31, 30, 29, 1)),
+             "eight-no-1": lambda: _offset_matrix(
+                 2500, tuple(range(24, 2, -3)), (7, 2)),
+             "diagonal": lambda: _offset_matrix(700, (), ())}
+
+
+def _diag_tri(name="grid97x13", dtype=torch.float64, device="cpu"):
+    a = DIAG_MATS[name]()
+    return a, tbt.DiagTriSolver.from_factor(a, ilu0_factorize(a), block=128,
+                                            dtype=dtype, device=device)
+
+
+def test_diag_trisolve_missing_build_raises_and_never_falls_back(
+        monkeypatch):
+    _, tri = _diag_tri()
+
+    def no_build():
+        raise RuntimeError("kernel build failed")
+
+    def twin_called(*a, **k):
+        raise AssertionError("fell back to the plain twin")
+
+    monkeypatch.setattr(_kernels, "trisolve_library", no_build)
+    monkeypatch.setattr(tbt, "diag_sweep_chunked_plain", twin_called)
+    monkeypatch.setattr(tbt, "diag_msolve_plain", twin_called)
+    tbt.reset_launch_counts()
+    meta = torch.empty(tri.n, dtype=torch.float64, device="meta")
+    lo, up = tri.lo_vals.to("meta"), tri.up_vals.to("meta")
+    d = tri.up_diag.to("meta")
+    plans = (tri.plan_lo, tri.plan_up)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tbt.diag_sweep(meta, lo, tri.lo_offs, None, plans[0], True)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        tbt.diag_msolve(meta, lo, tri.lo_offs, up, tri.up_offs, d, plans)
+    assert tbt.diag_msolve.launches == 0
+    assert tbt.diag_sweep.launches == 0
+
+
+def test_diag_trisolve_kernel_path_requires_the_plan(monkeypatch):
+    """Without the factor's plan the diagonal-form front ends raise before
+    building or launching anything."""
+    _, tri = _diag_tri()
+
+    def built(*a, **k):
+        raise AssertionError("built or planned without a plan")
+
+    monkeypatch.setattr(_kernels, "trisolve_library", built)
+    monkeypatch.setattr(tbt, "diag_plan", built)
+    tbt.reset_launch_counts()
+    meta = torch.empty(tri.n, dtype=torch.float64, device="meta")
+    lo, up = tri.lo_vals.to("meta"), tri.up_vals.to("meta")
+    with pytest.raises(ValueError, match="plan"):
+        tbt.diag_sweep(meta, lo, tri.lo_offs, None, None, True)
+    with pytest.raises(ValueError, match="plan"):
+        tbt.diag_msolve(meta, lo, tri.lo_offs, up, tri.up_offs,
+                        tri.up_diag.to("meta"), (None, None))
+    assert tbt.diag_msolve.launches == 0
+    assert tbt.diag_sweep.launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("rows", ["one", "ragged", "short"])
+@pytest.mark.parametrize("name", list(DIAG_MATS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_diag_trisolve_kernels_match_twins_on_card(dtype, name, rows):
+    """The diagonal-form route: B4b both ways and B4a against the chunked
+    twin on the same plan and the dense route's sequential twin, within
+    1e-12 (f64) / 1e-5 (f32) of max|twin|, two launches equal bit for bit;
+    one chunk, chunks of 2·tb + 1 (the last one short), chunks shorter
+    than the tail (where 120 chunks cover n); offsets with and without 1,
+    eight of them, none; and the
+    kernel's transfer matrices against the twin's, in f64."""
+    a, tri = _diag_tri(name, dtype, "cuda")
+    m = ilu0_factorize(a)
+    dense = tbt.BandedTriSolver.from_factor(a, m, block=128, dtype=dtype,
+                                            device="cpu")
+    tb = tri.plan_lo.tb
+    # "short": chunks shorter than the tail where at most 120 chunks do
+    # (the carry's blocks must fit the card at once)
+    length = {"one": a.n, "ragged": 2 * max(tb, 1) + 1,
+              "short": max(tb // 2, 1, -(-a.n // 120))}[rows]
+    plans = (tbt.diag_plan(tri.lo_vals, tri.lo_offs, None, a.n, True, length),
+             tbt.diag_plan(tri.up_vals, tri.up_offs, tri.up_diag, a.n, False,
+                           length))
+    if tb and rows != "one":
+        assert plans[0].chunks > 2
+        v64 = tri.lo_vals.double().cpu()
+        t_twin = tbt.diag_transfer_plain(v64, tri.lo_offs, None, a.n, tb,
+                                         plans[0].rows, plans[0].chunks, True)
+        t_kern = _kernels.diag_transfer(v64.cuda(), tri.lo_offs, None, a.n,
+                                        tb, plans[0].rows, plans[0].chunks,
+                                        True).cpu()
+        assert (t_kern - t_twin).abs().max() <= 1e-12 * max(
+            1.0, float(t_twin.abs().max()))
+    f = torch.from_numpy(np.random.default_rng(1).standard_normal(a.n)).to(
+        dtype).to("cuda")
+    fp = dense._pad(f.cpu())
+    bound = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
+    lo = (tri.lo_vals, tri.lo_offs, None)
+    up = (tri.up_vals, tri.up_offs, tri.up_diag)
+    tbt.reset_launch_counts()
+    cases = [
+        (lambda: tbt.diag_sweep(f, *lo, plans[0], True),
+         lambda: tbt.diag_sweep_chunked_plain(f, *lo, plans[0], True),
+         lambda: tbt.banded_sweep_padded_plain(fp, dense.wt_lo, dense.wct_lo,
+                                               True)[:a.n]),
+        (lambda: tbt.diag_sweep(f, *up, plans[1], False),
+         lambda: tbt.diag_sweep_chunked_plain(f, *up, plans[1], False),
+         lambda: tbt.banded_sweep_padded_plain(fp, dense.wt_up, dense.wct_up,
+                                               False)[:a.n]),
+        (lambda: tbt.diag_msolve(f, tri.lo_vals, tri.lo_offs, tri.up_vals,
+                                 tri.up_offs, tri.up_diag, plans),
+         lambda: tbt.diag_msolve_plain(f, tri.lo_vals, tri.lo_offs,
+                                       tri.up_vals, tri.up_offs, tri.up_diag,
+                                       plans),
+         lambda: tbt.fused_msolve_padded_plain(fp, dense.wt_lo, dense.wct_lo,
+                                               dense.wt_up,
+                                               dense.wct_up)[:a.n])]
+    for kern, twin, seq in cases:
+        torch.full_like(f, float("nan"))
+        yk = kern()
+        torch.full_like(f, float("nan"))
+        yk2 = kern()
+        yt, ys = twin(), seq().to("cuda")
+        torch.cuda.synchronize()
+        assert torch.isfinite(yk).all()
+        assert torch.equal(yk, yk2)   # deterministic: no atomics
+        assert (yk - yt).abs().max() <= bound * yt.abs().max()
+        assert (yk - ys).abs().max() <= bound * ys.abs().max()
+    # B4a runs B4b forward and backward: two sweeps of its own
+    assert tbt.diag_sweep.launches == 8
+    assert tbt.diag_msolve.launches == 2
+    # the carry's hand-over slots hold the sentinel again between sweeps
+    for plan in plans:
+        bits = plan.hand.view(torch.int64 if dtype == torch.float64
+                              else torch.int32)
+        assert bool((bits == tbt.HAND_SENTINEL[dtype]).all())
 
 
 def test_operator_constructors_default_to_the_card():
