@@ -8,7 +8,8 @@ same arrays bit for bit; the Laplacians; the bundled ``.mtx`` fixtures.
 ``banded_laplacian(100)`` reproduces the symmetrized mat10000 fixture and
 ``laplacian_2d(30)`` the symmetrized mat900 fixture (reference
 mat10000.mtx:1-5, mat900.mtx:1-7); ``banded_laplacian_dia(3163)`` is the
-bench's 10M-row SpMV matrix.
+bench's 10M-row SpMV matrix; ``hpcg27(104, 104, 104)`` is HPCG's problem at
+its reference local grid.
 """
 
 from __future__ import annotations
@@ -161,3 +162,30 @@ def laplacian_2d(side: int) -> CSRMatrix:
             data.append(np.full(int(ok.sum()), -1.0))
     return CSRMatrix.from_coo(COOMatrix(
         n, n, np.concatenate(rows), np.concatenate(cols), np.concatenate(data)))
+
+
+def hpcg27(nx: int, ny: int, nz: int) -> CSRMatrix:
+    """HPCG's problem matrix (github.com/hpcg-benchmark/hpcg,
+    ``src/GenerateProblem_ref.cpp``): the 27-point stencil on an
+    ``nx × ny × nz`` grid in lexicographic order (x fastest), 26 on the
+    diagonal and −1 for each neighbour inside the grid, so boundary rows
+    have fewer entries.  Built row by row in CSR order (each row's columns
+    ascending, as HPCG's triple loop over the (z, y, x) offsets gives them),
+    so the 104³ grid takes a few seconds."""
+    n = nx * ny * nz
+    idx = np.arange(n, dtype=np.int64)
+    x, y, z = idx % nx, idx // nx % ny, idx // (nx * ny)
+    step = np.array([-1, 0, 1], dtype=np.int64)
+    dz, dy, dx = (a.ravel() for a in np.meshgrid(step, step, step,
+                                                 indexing="ij"))
+    keep = ((x[:, None] + dx >= 0) & (x[:, None] + dx < nx)
+            & (y[:, None] + dy >= 0) & (y[:, None] + dy < ny)
+            & (z[:, None] + dz >= 0) & (z[:, None] + dz < nz))
+    col = idx[:, None] + (dz * ny + dy) * nx + dx
+    vals = np.where((dx == 0) & (dy == 0) & (dz == 0), 26.0, -1.0)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(keep.sum(axis=1), out=indptr[1:])
+    return CSRMatrix(n, n,
+                     np.broadcast_to(vals, keep.shape)[keep].astype(
+                         np.float64),
+                     col[keep].astype(np.int32), indptr.astype(np.int32))

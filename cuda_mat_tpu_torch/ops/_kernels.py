@@ -8,8 +8,9 @@ built or imported from CUDA when this module is imported, so CPU-only
 installs import it freely.  Callers go through the front ends in
 :mod:`cuda_mat_tpu_torch.ops.stencil`,
 :mod:`cuda_mat_tpu_torch.ops.stencil2d`,
-:mod:`cuda_mat_tpu_torch.ops.dia_spmv` and
-:mod:`cuda_mat_tpu_torch.ops.banded_trisolve`, which send CPU tensors to the
+:mod:`cuda_mat_tpu_torch.ops.dia_spmv`,
+:mod:`cuda_mat_tpu_torch.ops.banded_trisolve` and
+:mod:`cuda_mat_tpu_torch.ops.level_trisolve`, which send CPU tensors to the
 plain PyTorch twins and CUDA tensors here.
 """
 
@@ -119,6 +120,12 @@ def trisolve_library() -> ctypes.CDLL:
                            _I, _I, _I, _I, _P],
         "cmt_diag_transfer": [_I, _P, _P, _P, _LL, _I, _P, _I, _I, _I, _I,
                               _P]}, headers=("tma_ring.cuh",))
+
+
+def level_library() -> ctypes.CDLL:
+    """The level-scheduled triangular sweep B8 (``csrc/level_trisolve.cu``)."""
+    return _load("level_trisolve.cu", "libcmt_levels", {
+        "cmt_level_sweep": [_I] + [_P] * 8 + [_I, _I, _P]})
 
 
 def dia_library() -> ctypes.CDLL:
@@ -805,6 +812,30 @@ def diag_transfer(vals: torch.Tensor, offsets, diag, n: int, tb: int,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, rc, "diag_transfer")
     return t
+
+
+def level_sweep(f: torch.Tensor, plan) -> torch.Tensor:
+    """Launch kernel B8 on ``f``'s device and current stream: one sweep of
+    ``plan`` (a ``level_trisolve.LevelPlan``) in one cooperative launch of
+    ``plan.blocks`` blocks (fewer where the card cannot hold them at
+    once)."""
+    lib = level_library()
+    _check_cuda(f, plan.vals, *(() if plan.diag is None else (plan.diag,)))
+    if any(t.device != f.device or t.dtype != torch.int32
+           or not t.is_contiguous()
+           for t in (plan.level_ptr, plan.rows, plan.ptr, plan.cols)):
+        raise ValueError("the plan's index arrays must be contiguous int32"
+                         " on f's device")
+    y = torch.empty_like(f)
+    with torch.cuda.device(f.device):
+        rc = lib.cmt_level_sweep(
+            _DTYPE_CODE[f.dtype], f.data_ptr(), y.data_ptr(),
+            plan.level_ptr.data_ptr(), plan.rows.data_ptr(),
+            plan.ptr.data_ptr(), plan.cols.data_ptr(), plan.vals.data_ptr(),
+            None if plan.diag is None else plan.diag.data_ptr(), plan.levels,
+            plan.blocks, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, rc, "level_sweep")
+    return y
 
 
 def dia_spmv(data: torch.Tensor, x_pad: torch.Tensor, offsets,

@@ -1,7 +1,10 @@
 """Generic blocked sparse triangular solves (counterpart of
 :mod:`cuda_mat_tpu.ops.trisolve`): exact ILU(0) for a factor of any
-pattern, where the banded engine (:mod:`.banded_trisolve`, kernels B4a/B4b)
-needs the bandwidth within one block.
+pattern, as the JAX package runs it where its banded engine needs the
+bandwidth within one block.  Here the distributed block-Jacobi ILU(0)
+(:mod:`cuda_mat_tpu_torch.parallel.dist_precond`) runs on it; one
+device's exact ILU(0) takes the banded routes (:mod:`.banded_trisolve`)
+or the level-scheduled one (:mod:`.level_trisolve`) instead.
 
 The reference applies ILU(0) with cuSPARSE's level-scheduled triangular
 solves (analysis at reference pbicgstab.cu:338-345, solves at :92-98,

@@ -2,7 +2,7 @@
 :mod:`cuda_mat_tpu.precond.preconditioners`): the identity, Jacobi, exact
 ILU(0) through the banded triangular solver (kernels B4a/B4b, over the
 factor's diagonals or its block inverses) where the band fits one block
-and the generic blocked solver elsewhere, the adapter
+and the level-scheduled one (kernel B8) elsewhere, the adapter
 that runs a true-n preconditioner on padded vectors, and the Neumann-series
 ILU(0) — on a padded operator's layout, constant factors on the gap-strided
 stencil layout (kernels B1/B2/B5) or the exact factors as banded DIA operators
@@ -35,13 +35,13 @@ from cuda_mat_tpu_torch.ops import _kernels
 from cuda_mat_tpu_torch.ops.banded_trisolve import (
     BandedTriSolver, DiagTriSolver, diag_route_fits)
 from cuda_mat_tpu_torch.ops.dia_spmv import PallasDIAOperator
+from cuda_mat_tpu_torch.ops.level_trisolve import LevelTriSolver
 from cuda_mat_tpu_torch.ops.operators import make_operator
 from cuda_mat_tpu_torch.ops.stencil import (
     ConstStencilOperator, compose_stencil_terms, const_factor_terms,
     const_series_msolve_fma_padded, const_series_msolve_padded,
     extend_gapmask, fma_combine, msolve_halo, neumann_poly_terms,
     restride_dia, strided_offsets)
-from cuda_mat_tpu_torch.ops.trisolve import BlockTriangularSolver
 from cuda_mat_tpu_torch.reference.cpu_solvers import ilu0_factorize
 from cuda_mat_tpu_torch.utils import timing
 
@@ -80,13 +80,13 @@ class ILU0Preconditioner:
     true-n vectors by the banded triangular solver, on its diagonal-form
     route (:class:`~cuda_mat_tpu_torch.ops.banded_trisolve.DiagTriSolver`)
     or its dense one (:class:`~cuda_mat_tpu_torch.ops.banded_trisolve.
-    BandedTriSolver`), or by the generic blocked one
-    (:class:`~cuda_mat_tpu_torch.ops.trisolve.BlockTriangularSolver`).
+    BandedTriSolver`), or by the level-scheduled one
+    (:class:`~cuda_mat_tpu_torch.ops.level_trisolve.LevelTriSolver`).
     Factorization happens once at setup on the host, as the reference
     times it apart (pbicgstab.cu:356-363); the native factorizer is used
     when it builds."""
 
-    tri: object  # DiagTriSolver | BandedTriSolver | BlockTriangularSolver
+    tri: object  # DiagTriSolver | BandedTriSolver | LevelTriSolver
 
     @classmethod
     def from_csr(cls, csr, block: int = 256, dtype=torch.float64, *, device,
@@ -103,36 +103,42 @@ class ILU0Preconditioner:
         bandwidth is at most ``block``, the diagonal-form route (kernels
         B4a/B4b over the factor's own diagonals) when each triangle has at
         most ``DIAG_MAX_OFFSETS`` offsets, else the dense route (B4a/B4b
-        over block inverses); a wider band takes
-        :class:`~cuda_mat_tpu_torch.ops.trisolve.BlockTriangularSolver`
-        (stock torch ops, as the JAX package's XLA loop)."""
-        # the block inverses are O(n·B) floats: refuse what would eat
-        # gigabytes at setup (the JAX package's guard and message)
-        nb = -(-csr.n // block)
-        w_bytes = 2 * nb * block * block * dtype.itemsize
-        if w_bytes > (2 << 30):
-            raise ValueError(
-                f"ILU(0) blocked trisolve would precompute {w_bytes / 2**30:.1f}"
-                f" GiB of block inverses (n={csr.n}, block={block}); use"
-                f" precond='jacobi', solve_refined, or the distributed"
-                f" bjacobi_ilu0 for systems this large")
+        over block inverses); a wider band takes the ``"levels"`` route
+        (kernel B8 over the factor's own rows, level by level).
+
+        Only the dense route builds block inverses, O(n·B) floats, so only
+        it keeps the JAX package's 2 GiB guard (its message).  The JAX
+        package applies the guard before it picks an engine, whatever
+        builds them (ROADMAP C13)."""
         if bandwidth(csr) > block:
-            engine = BlockTriangularSolver
+            engine = LevelTriSolver
         elif diag_route_fits(csr, block):
             engine = DiagTriSolver
         else:
             engine = BandedTriSolver
+            nb = -(-csr.n // block)
+            w_bytes = 2 * nb * block * block * dtype.itemsize
+            if w_bytes > (2 << 30):
+                raise ValueError(
+                    f"ILU(0) blocked trisolve would precompute"
+                    f" {w_bytes / 2**30:.1f} GiB of block inverses"
+                    f" (n={csr.n}, block={block}); use precond='jacobi',"
+                    f" solve_refined, or the distributed bjacobi_ilu0 for"
+                    f" systems this large")
         with timing.span("precond.factor"):
             mvals = _factorize(csr, milu_omega)
+        if engine is LevelTriSolver:
+            return cls(engine.from_factor(csr, mvals, dtype=dtype,
+                                          device=device))
         return cls(engine.from_factor(csr, mvals, block=block, dtype=dtype,
                                       device=device))
 
     @property
     def route(self) -> str:
         """The trisolve route taken: "diag" (the factor's diagonals),
-        "dense" (block inverses) or "blocked" (the generic solver)."""
-        return {DiagTriSolver: "diag", BandedTriSolver: "dense"}.get(
-            type(self.tri), "blocked")
+        "dense" (block inverses) or "levels" (level by level)."""
+        return {DiagTriSolver: "diag", BandedTriSolver: "dense",
+                LevelTriSolver: "levels"}[type(self.tri)]
 
     def msolve(self, f: torch.Tensor) -> torch.Tensor:
         return self.tri.msolve(f)

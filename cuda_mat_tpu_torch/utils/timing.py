@@ -27,7 +27,10 @@ The names a record keeps, nested as the program opens them:
   conversion, stencil proof, layout, upload), ``make_solver.precond``
   (the preconditioner: layout re-plan, factors' operators or block
   inverses, uploads), inside it ``precond.factor`` (the host ILU(0) /
-  MILU(0) factorization);
+  MILU(0) factorization) and, on exact ILU(0)'s ``"levels"`` route,
+  ``precond.levels`` (the level analysis of both triangles and its
+  upload; the record counts the levels of a forward and a backward sweep
+  together as ``levels``);
 - ``solve``: ``solve.prep`` (``solve.prep.b``, ``solve.prep.x0``: each
   vector cast, padded and uploaded; ``solve.prep.sync``: the wait for the
   uploads), ``solve.loop`` (from after that wait to after the loop's
@@ -54,7 +57,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 SPANS = ("make_solver", "make_solver.operator", "make_solver.precond",
-         "precond.factor",
+         "precond.factor", "precond.levels",
          "solve", "solve.prep", "solve.prep.b", "solve.prep.x0",
          "solve.prep.sync", "solve.loop", "loop.step", "loop.poll",
          "solve.finish",
@@ -78,12 +81,14 @@ def device_sync(device) -> None:
 class Record(NamedTuple):
     """One closed call: its ``kind`` (``"solve"``, ``"make_solver"``,
     ``"refine"``), the nanoseconds of each span of :data:`SPANS` (None
-    where it did not run), and for a solve its iteration count and the
-    loop steps executed (a first-half exit included)."""
+    where it did not run), for a solve its iteration count and the loop
+    steps executed (a first-half exit included), and for a make_solver the
+    levels of its triangular sweeps (0 off the ``"levels"`` route)."""
     kind: str
     ns: tuple
     iters: int
     steps: int
+    levels: int = 0
 
     def seconds(self, name: str) -> Optional[float]:
         v = self.ns[_SLOT[name]]
@@ -98,13 +103,14 @@ class Record(NamedTuple):
 class OpenRecord:
     """The record of a call in progress (what :func:`record` yields)."""
 
-    __slots__ = ("kind", "ns", "iters", "steps", "profiling")
+    __slots__ = ("kind", "ns", "iters", "steps", "levels", "profiling")
 
     def __init__(self, kind: str, profiling: bool):
         self.kind = kind
         self.ns: List[Optional[int]] = [None] * len(SPANS)
         self.iters = 0
         self.steps = 0
+        self.levels = 0
         self.profiling = profiling
 
     def add(self, name: str, ns: int) -> None:
@@ -190,7 +196,8 @@ def record(kind: str):
             yield rec
     finally:
         stack.pop()
-    _ring.append(Record(kind, tuple(rec.ns), rec.iters, rec.steps))
+    _ring.append(Record(kind, tuple(rec.ns), rec.iters, rec.steps,
+                        rec.levels))
 
 
 class LoopClock:

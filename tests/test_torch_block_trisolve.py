@@ -5,8 +5,11 @@ against the JAX package's ``BlockTriangularSolver``, on the cases of
 Both packages get the same factor (the numpy ILU(0) of the same matrix).
 The host arrays are compared exactly; ``msolve`` and both sweeps within
 1e-12 of max|x| of the JAX result (the two sum the gathered products in
-other orders), in f64.  Exact ILU(0) through the blocked engine lands on
-the goldens ``mat900_ilu`` and ``mat10000_ilu`` within ±2 iterations.
+other orders), in f64.  The JAX package runs exact ILU(0) on its blocked
+engine where the band is wider than the block; the port runs it level by
+level there (``ops/level_trisolve.py``), lands on the goldens
+``mat900_ilu`` and ``mat10000_ilu`` within ±2 iterations, and keeps the
+blocked solver for the distributed block-Jacobi ILU(0).
 """
 
 import os
@@ -27,6 +30,7 @@ from cuda_mat_tpu.reference.cpu_solvers import ilu0_factorize
 import cuda_mat_tpu_torch as ct
 from cuda_mat_tpu_torch.ops import trisolve as ttri
 from cuda_mat_tpu_torch.ops.banded_trisolve import DiagTriSolver
+from cuda_mat_tpu_torch.ops.level_trisolve import LevelTriSolver
 from cuda_mat_tpu_torch.precond import preconditioners as tpre
 
 torch.set_num_threads(1)
@@ -98,11 +102,11 @@ def test_f32_arrays_are_the_f64_arrays_rounded():
 
 
 @pytest.mark.parametrize("block,engine", [(64, DiagTriSolver),
-                                          (16, ttri.BlockTriangularSolver)])
+                                          (16, LevelTriSolver)])
 def test_ilu0_engine_rule(block, engine):
     """Bandwidth 31 (mat900): the banded engine when it fits the block (its
-    diagonal-form route: four offsets a triangle), the blocked one when it
-    does not."""
+    diagonal-form route: four offsets a triangle), the level-scheduled one
+    when it does not; either against the blocked solver's msolve."""
     a = ct.load_mm_sparse_matrix(os.path.join(ROOT, "data", "mat900.mtx"))
     pre = tpre.ILU0Preconditioner.from_csr(a, block=block, device="cpu")
     assert type(pre.tri) is engine
@@ -114,16 +118,17 @@ def test_ilu0_engine_rule(block, engine):
 
 
 def test_block_inverse_guard_matches_jax_for_a_wide_band():
-    """The 2 GiB guard comes before the engine choice: a band wider than
-    the block raises the JAX package's error as the banded case does."""
+    """Each package's behaviour on a band wider than the block past the
+    2 GiB guard (ROADMAP C13): the JAX package applies the guard before it
+    picks its engine and raises; the port builds no block inverses there
+    and takes the "levels" route."""
     a_j = jprob.grid_laplacian(300, 1400)       # bandwidth 1400 > 1024
-    with pytest.raises(ValueError) as e_j:
+    with pytest.raises(ValueError, match="GiB of block inverses"):
         jpre.ILU0Preconditioner.from_csr(a_j, block=1024)
-    with pytest.raises(ValueError) as e_t:
-        tpre.ILU0Preconditioner.from_csr(_port(a_j), block=1024,
-                                         device="cpu")
-    assert str(e_t.value) == str(e_j.value)
-    assert "GiB of block inverses" in str(e_t.value)
+    pre = tpre.ILU0Preconditioner.from_csr(_port(a_j), block=1024,
+                                           device="cpu")
+    assert pre.route == "levels"
+    assert pre.tri.lower.levels == pre.tri.upper.levels == 300 + 1400 - 1
 
 
 @pytest.mark.parametrize("name,block", [("mat900", 16), ("mat10000", 64)])
@@ -134,7 +139,7 @@ def test_blocked_ilu0_lands_on_the_golden(name, block):
                                            precond="ilu0",
                                            trisolve_block=block),
                         device="cpu")
-    assert isinstance(ps.pre.inner.tri, ttri.BlockTriangularSolver)
+    assert isinstance(ps.pre.inner.tri, LevelTriSolver)
     r = ps.solve(np.ones(a.n))
     assert r.converged and abs(r.iters - int(g["iters"])) <= 2
     np.testing.assert_allclose(r.x, g["x"], rtol=1e-5, atol=1e-7)

@@ -266,12 +266,12 @@ def test_route_rule_at_its_edge(count, route, side):
 
 
 def test_route_rule_band_wider_than_block():
-    """A band wider than the block takes the generic blocked solver, few
+    """A band wider than the block takes the level-scheduled solver, few
     offsets or not."""
     a = _matrix("mat900")
     assert not tbt.diag_route_fits(a, 16)
     assert tpre.ILU0Preconditioner.from_csr(a, block=16,
-                                            device="cpu").route == "blocked"
+                                            device="cpu").route == "levels"
     with pytest.raises(ValueError, match="offsets"):
         tbt.DiagTriSolver.from_factor(a, ilu0_factorize(a), block=16,
                                       device="cpu")

@@ -107,23 +107,54 @@ def test_refined_through_an_ilu0_solver_reaches_1e6():
 
 
 def test_ilu0_limits_match_jax():
-    """The 2 GiB guard on the block inverses raises the JAX package's
-    error; a band wider than the block takes the generic blocked solver,
-    as in the JAX package: mat900 (bandwidth 31) at block 16 solves as the
-    JAX solve does (f64, ±2 iterations, x to rtol 1e-5)."""
+    """Past the 2 GiB guard on block inverses the JAX package raises
+    whatever its engine; the port keeps the guard for its dense route only
+    (ROADMAP C13), so this band within the block takes the diagonal form
+    and builds no block inverses.  A band wider than the block: mat900
+    (bandwidth 31) at block 16 on the port's "levels" route solves as the
+    JAX package's blocked solve does (f64, ±2 iterations, x to rtol
+    1e-5)."""
     a_t = ct.grid_laplacian(1400, 100)
-    with pytest.raises(ValueError) as e_j:
+    with pytest.raises(ValueError, match="GiB of block inverses"):
         jpre.ILU0Preconditioner.from_csr(a_t, block=1024)
-    with pytest.raises(ValueError) as e_t:
-        tpre.ILU0Preconditioner.from_csr(a_t, block=1024, device="cpu")
-    assert str(e_t.value) == str(e_j.value)
+    assert tpre.ILU0Preconditioner.from_csr(
+        a_t, block=1024, device="cpu").route == "diag"
     j900, mat900 = _load("mat900")
     ps = ct.make_solver(mat900, _cfg(ct, "float64", precond="ilu0",
                                      trisolve_block=16), device="cpu")
-    assert type(ps.pre.inner.tri).__name__ == "BlockTriangularSolver"
+    assert ps.pre.inner.route == "levels"
     rt = ps.solve(np.ones(mat900.n))
     rj = cm.solve(j900, np.ones(mat900.n), _cfg(cm, "float64",
                                                 precond="ilu0",
                                                 trisolve_block=16))
     assert rt.converged and rj.converged and abs(rt.iters - rj.iters) <= 2
     np.testing.assert_allclose(rt.x, rj.x, rtol=1e-5)
+
+
+def test_dense_route_keeps_the_jax_guard(monkeypatch):
+    """The dense route (a band within the block, more than
+    DIAG_MAX_OFFSETS offsets a triangle) past 2 GiB of block inverses
+    raises the JAX package's error word for word, before it factorizes:
+    HPCG's 27-point 30 x 30 x 156 grid (bandwidth 931, 13 offsets a
+    triangle) at block 1024 would take 2 * 138 * 1024^2 * 8 bytes in f64
+    (ROADMAP C13)."""
+    from cuda_mat_tpu.formats.csr import CSRMatrix as JCSRMatrix
+    from cuda_mat_tpu_torch.formats.reorder import bandwidth
+    from cuda_mat_tpu_torch.models.problems import hpcg27
+    from cuda_mat_tpu_torch.ops.banded_trisolve import diag_route_fits
+
+    a = hpcg27(30, 30, 156)
+    assert bandwidth(a) == 931 and not diag_route_fits(a, 1024)
+
+    def no_factorization(*args, **kwargs):
+        raise AssertionError("factorized before the guard")
+
+    monkeypatch.setattr(tpre, "_factorize", no_factorization)
+    with pytest.raises(ValueError) as e_j:
+        jpre.ILU0Preconditioner.from_csr(
+            JCSRMatrix(a.n, a.m, a.data, a.indices, a.indptr), block=1024)
+    with pytest.raises(ValueError) as e_t:
+        tpre.ILU0Preconditioner.from_csr(a, block=1024, device="cpu")
+    assert str(e_t.value) == str(e_j.value)
+    assert "2.2 GiB of block inverses (n=140400, block=1024)" in \
+        str(e_t.value)

@@ -1109,3 +1109,63 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     hdr.write_text("header 2")
     p3, s3 = build.build_library(cc, str(src), "libk", [str(hdr)])
     assert p3 != p1 and s3 > 0.0
+
+
+def _arrow(n):
+    """Row 0 coupled to every row and every row to row 0, diagonally
+    dominant: level 1 of L holds n - 1 rows (more than the grid's
+    threads), and U's row 0 holds n - 1 entries (past the kernel's
+    registers)."""
+    i = np.arange(1, n)
+    rows = np.concatenate([np.arange(n), i, np.zeros(n - 1, np.int64)])
+    cols = np.concatenate([np.arange(n), np.zeros(n - 1, np.int64), i])
+    vals = np.concatenate([np.full(n, 4.0), np.full(n - 1, -1.0 / n),
+                           np.full(n - 1, -1.0 / n)])
+    vals[0] = 4.0 * n
+    return CSRMatrix.from_coo(COOMatrix(n, n, rows.astype(np.int32),
+                                        cols.astype(np.int32), vals))
+
+
+def _level_mats():
+    from cuda_mat_tpu_torch.formats.reorder import permute_csr
+
+    g = tprob.grid_laplacian(120, 90)
+    return {
+        "hpcg 20x18x16": tprob.hpcg27(20, 18, 16),
+        "shuffled grid": permute_csr(g, np.random.default_rng(0).permutation(
+            g.n).astype(np.int64)),
+        "arrow": _arrow(40000),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+@pytest.mark.parametrize("name", ["hpcg 20x18x16", "shuffled grid", "arrow"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_level_sweep_kernel_matches_twin_on_card(dtype, name):
+    """B8 (both sweeps and the msolve) against its plain twin on the same
+    plans, within 1e-12 (f64) / 1e-5 (f32) of max|twin| (the twin's row
+    sums come from torch's gather and index_add), two launches bitwise
+    equal, one launch a sweep."""
+    from cuda_mat_tpu_torch.ops import level_trisolve as tlv
+
+    a = _level_mats()[name]
+    m = ilu0_factorize(a)
+    tri = tlv.LevelTriSolver.from_factor(a, m, dtype=dtype, device="cuda")
+    tri_cpu = tlv.LevelTriSolver.from_factor(a, m, dtype=dtype, device="cpu")
+    f = torch.from_numpy(np.random.default_rng(2).standard_normal(a.n)).to(
+        dtype)
+    bound = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
+    tlv.reset_launch_counts()
+    for what, sweeps in (("solve_lower", 1), ("solve_upper", 1),
+                         ("msolve", 2)):
+        before = tlv.level_sweep.launches
+        y1 = getattr(tri, what)(f.cuda())
+        y2 = getattr(tri, what)(f.cuda())
+        torch.cuda.synchronize()
+        assert tlv.level_sweep.launches - before == 2 * sweeps
+        want = getattr(tri_cpu, what)(f)
+        assert torch.equal(y1, y2), what
+        err = float((y1.cpu() - want).abs().max())
+        assert err <= bound * float(want.abs().max()), (what, err)

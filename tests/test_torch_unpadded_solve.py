@@ -25,7 +25,7 @@ from cuda_mat_tpu.formats.csr import CSRMatrix as JCSRMatrix
 import cuda_mat_tpu_torch as ct
 import cuda_mat_tpu_torch.models.problems as tprob
 from cuda_mat_tpu_torch.ops import operators as tops
-from cuda_mat_tpu_torch.ops import trisolve as ttri
+from cuda_mat_tpu_torch.ops.level_trisolve import LevelTriSolver
 from cuda_mat_tpu_torch.precond import preconditioners as tpre
 
 torch.set_num_threads(1)
@@ -63,7 +63,7 @@ def test_solve_matches_jax(fmt, precond):
     ps = ct.make_solver(a_t, _cfg(ct, precond), format=fmt, device="cpu")
     assert type(ps.op) is OPERATORS[fmt]
     if precond == "ilu0":
-        assert isinstance(ps.pre.tri, ttri.BlockTriangularSolver)  # band 127
+        assert isinstance(ps.pre.tri, LevelTriSolver)  # band 127 > 32
     rt = ps.solve(b)
     assert rt.status == rj.status == ct.SolverStatus.CONVERGED
     assert abs(rt.iters - rj.iters) <= (6 if precond == "none" else 2)
