@@ -23,7 +23,12 @@ script exits non-zero:
    show that B1 and B2 carried every matvec and msolve; then the cost of
    the solver's per-iteration host poll, and a torch.profiler trace of 30
    iterations split into the stencil kernel, the msolve kernels, the dots,
-   the elementwise passes, other device work and idle;
+   the elementwise passes, other device work and idle; then the solve's
+   host boundary (``boundary_check``): the spans of b's upload, the x0,
+   the wait and the download with the staging page-locked and pageable,
+   beside the same done as before the staging, all three bitwise one
+   answer, the default x0 bitwise an explicit ones, an answer left as it
+   was by the next solve, one b up and one x down counted;
 5. banded trisolve parity, both routes: the dense route's B4a and B4b
    (forward and backward, over block inverses) against their sequential
    twins and the chunked plain version of their algorithm, in f32 and f64
@@ -40,7 +45,8 @@ script exits non-zero:
    (bicgstab_lu_precond) on data/mat900.mtx and data/mat10000.mtx on the
    card and on the CPU, in f64 and f32, against the goldens; refinement of
    mat10000 through an f32 ILU(0) solver; the 1M-row
-   grid_laplacian(10000, 100) solved once in f64 and twice in f32;
+   grid_laplacian(10000, 100) solved once in f64 and twice in f32; after
+   the path's launch counts, path 1's boundary check on the f64 solver;
 7. banded DIA parity: B3 against its twin, bitwise, in f32 and f64, with
    both pad blocks checked zero, at mat3's layout, at the 10M-row grid's
    DIA and restrided-factor layouts and at the bench's 10M-row
@@ -205,6 +211,7 @@ from cuda_mat_tpu_torch.parallel import dist_solver as par_solver
 from cuda_mat_tpu_torch.parallel import partition as par_partition
 from cuda_mat_tpu_torch.precond import preconditioners as pre_mod
 from cuda_mat_tpu_torch.utils import build as ct_build
+from cuda_mat_tpu_torch.utils import timing
 from cuda_mat_tpu_torch.utils.timing import PhaseTimer
 
 # the module: the package exports the function of the same name, as the
@@ -594,6 +601,106 @@ def poll_cost(ps, b, iters):
         if not poll:
             out["enqueue"] = (t1 - t0) * 1e3 / iters
     return out
+
+
+BOUNDARY_REPS = 5             # turns of the boundary check's three modes
+BOUNDARY_SPANS = ("solve.prep.b", "solve.prep.x0", "solve.prep.sync",
+                  "solve.finish")
+
+
+def boundary_check(ps, tag):
+    """The solve's host boundary (``solvers/bicgstab._Staging``) on the
+    card, for a b drawn as the benchmark draws it (uniform on [-1, 1) in
+    the solver's dtype): the medians over BOUNDARY_REPS solves each of
+    ``solve.prep.b``, ``.x0``, ``.sync`` and ``solve.finish`` with the
+    staging page-locked (the default on a card) and pageable, in turns,
+    beside the same parts done as before the staging (x0 made by np.ones
+    on the host; b and x0 cast on the host and copied from pageable
+    memory; x and each scalar read back on its own).  Checked: the three
+    give bitwise one x, count and history, the default x0 gives bitwise
+    what an explicit ones does, an answer is left as it was by the next
+    solve, and each solve counts one b up and one x down."""
+    ps = bs.PreparedSolver(ps.a, ps.op, ps.pre,
+                           ps._config.replace(true_residual=False),
+                           ps.dt_setup)
+    n = ps.n
+    dt = np.float32 if ps.op.vec_dtype == torch.float32 else np.float64
+    rng = np.random.default_rng(19)
+    b = rng.uniform(-1.0, 1.0, n).astype(dt)
+    b2 = rng.uniform(-1.0, 1.0, n).astype(dt)
+    stage = ps._staging
+
+    def before():
+        t = [time.perf_counter()]
+        bd = ps.op.pad_vec(b)
+        t.append(time.perf_counter())
+        x0d = ps.op.pad_vec(np.ones(n))
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = ps._loop(x0d, bd)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        back = bs._read_back(ps.op, out)
+        t.append(time.perf_counter())
+        return back, dict(zip(BOUNDARY_SPANS,
+                              (t[1] - t[0], t[2] - t[1], t[3] - t[2],
+                               t[5] - t[4])))
+
+    def staged(pinned):
+        if stage._pin != pinned:
+            stage._pin = pinned
+            stage._host.clear()
+        r = ps.solve(b)
+        rec = timing.records()[-1]
+        if (rec.h2d_bytes, rec.d2h_bytes) != (b.nbytes, n * b.itemsize):
+            raise RuntimeError(f"boundary {tag}: counted {rec.h2d_bytes} B"
+                               f" up, {rec.d2h_bytes} B down")
+        back = (r.x, r.status, r.iters, r.residual, r.residual0,
+                r.residual_history)
+        return back, {k: rec.seconds(k) for k in BOUNDARY_SPANS}
+
+    modes = {"before": before, "pinned": lambda: staged(True),
+             "pageable": lambda: staged(False)}
+    times = {m: [] for m in modes}
+    backs = {}
+    for _ in range(BOUNDARY_REPS):
+        for m in ("before", "pinned", "pageable", "pageable", "pinned",
+                  "before"):
+            backs[m], t = modes[m]()
+            times[m].append(t)
+    staged(True)
+    for m in modes:
+        med = {k: statistics.median(t[k] * 1e3 for t in times[m])
+               for k in BOUNDARY_SPANS}
+        print(f"boundary {tag} {m}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in med.items())
+            + f"; prep + finish {sum(med.values()):.3f} ms", flush=True)
+    ref = backs["before"]
+    for m in ("pinned", "pageable"):
+        x, status, iters, nrmr, nrmr0, hist = backs[m]
+        if not (x.tobytes() == ref[0].tobytes()
+                and int(status) == ref[1] and iters == ref[2]
+                and (nrmr, nrmr0) == (ref[3], ref[4])
+                and hist.tobytes() == ref[5].tobytes()):
+            raise RuntimeError(f"boundary {tag}: the {m} solve is not"
+                               f" bitwise the solve before the staging")
+    r1 = ps.solve(b)
+    r_ones = ps.solve(b, x0=np.ones(n))
+    if not (r1.x.tobytes() == r_ones.x.tobytes()
+            and r1.iters == r_ones.iters and r1.residual_history.tobytes()
+            == r_ones.residual_history.tobytes()):
+        raise RuntimeError(f"boundary {tag}: the default x0 is not bitwise"
+                           f" an explicit ones")
+    kept = r1.x.copy()
+    r2 = ps.solve(b2)
+    if r1.x.tobytes() != kept.tobytes() or np.array_equal(r1.x, r2.x):
+        raise RuntimeError(f"boundary {tag}: the next solve changed an"
+                           f" answer")
+    print(f"boundary {tag}: {ref[2]} iterations, bitwise one answer before"
+          f" the staging, staged pinned and pageable; default x0 ="
+          f" explicit ones; an answer outlives the next solve; up"
+          f" {b.nbytes} B, down {n * b.itemsize} B a solve", flush=True)
 
 
 # device kernels by name: which part of an iteration each one is (the first
@@ -2923,6 +3030,8 @@ def main():
         loop_split("flagship", lambda: cut.solve(b))
     ms_path1 = r.dt_alg * 1e3 / r.iters
     it_1, x_1 = r.iters, r.x
+    with phase(timer, "boundary 10M f32"):
+        boundary_check(ps, "10M f32")
 
     with phase(timer, "fusion kernel parity"):
         for dt in (torch.float32, torch.float64):
@@ -3062,6 +3171,8 @@ def main():
     path2 = counts()
     check_counted("main path 2 (exact ILU(0))", path2,
                   ("const_stencil_spmv", "diag_msolve", "diag_sweep"))
+    with phase(timer, "boundary 1M f64"):
+        boundary_check(ps1m64, "1M f64")
     del ps1m, ps1m64, tri
 
     cfg_n = ct.SolverConfig(maxit=2000, tol=1e-4, dtype="float32",

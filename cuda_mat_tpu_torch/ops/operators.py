@@ -59,7 +59,10 @@ class _TrueN:
     padded: ClassVar[bool] = False
 
     def pad_vec(self, v) -> torch.Tensor:
-        """A host array → a new tensor of ``vec_dtype`` on ``device``."""
+        """A host array → a new tensor of ``vec_dtype`` on ``device``; a
+        tensor (host or device) → one there, itself where it is already."""
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype=self.vec_dtype, device=self.device)
         return torch.tensor(np.asarray(v), dtype=self.vec_dtype,
                             device=self.device)
 

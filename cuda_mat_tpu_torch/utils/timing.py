@@ -31,13 +31,15 @@ The names a record keeps, nested as the program opens them:
   ``precond.levels`` (the level analysis of both triangles and its
   upload; the record counts the levels of a forward and a backward sweep
   together as ``levels``);
-- ``solve``: ``solve.prep`` (``solve.prep.b``, ``solve.prep.x0``: each
-  vector cast, padded and uploaded; ``solve.prep.sync``: the wait for the
+- ``solve``: ``solve.prep`` (``solve.prep.b``: b staged, uploaded, cast
+  and padded on the device; ``solve.prep.x0``: the default x0 made on the
+  device, or a caller's x0 as b; ``solve.prep.sync``: the wait for the
   uploads), ``solve.loop`` (from after that wait to after the loop's
   synchronise: ``SolveResult.dt_alg``, reference pbicgstab.h:108-109;
   the loop's ``loop.step`` and ``loop.poll`` sums inside it),
   ``solve.finish`` (x unpadded and downloaded, the history and scalars
-  read back);
+  read back); the record counts the bytes of the vectors that crossed
+  the host boundary each way as ``h2d_bytes`` and ``d2h_bytes``;
 - ``refine``: ``refine.residual`` (the host f64 residual and its norm)
   and ``refine.inner`` (an inner solve), once a restart.
 
@@ -81,14 +83,17 @@ def device_sync(device) -> None:
 class Record(NamedTuple):
     """One closed call: its ``kind`` (``"solve"``, ``"make_solver"``,
     ``"refine"``), the nanoseconds of each span of :data:`SPANS` (None
-    where it did not run), for a solve its iteration count and the loop
-    steps executed (a first-half exit included), and for a make_solver the
+    where it did not run), for a solve its iteration count, the loop
+    steps executed (a first-half exit included) and the bytes of vectors
+    staged up to the device and down from it, and for a make_solver the
     levels of its triangular sweeps (0 off the ``"levels"`` route)."""
     kind: str
     ns: tuple
     iters: int
     steps: int
     levels: int = 0
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
 
     def seconds(self, name: str) -> Optional[float]:
         v = self.ns[_SLOT[name]]
@@ -103,7 +108,8 @@ class Record(NamedTuple):
 class OpenRecord:
     """The record of a call in progress (what :func:`record` yields)."""
 
-    __slots__ = ("kind", "ns", "iters", "steps", "levels", "profiling")
+    __slots__ = ("kind", "ns", "iters", "steps", "levels", "h2d_bytes",
+                 "d2h_bytes", "profiling")
 
     def __init__(self, kind: str, profiling: bool):
         self.kind = kind
@@ -111,6 +117,8 @@ class OpenRecord:
         self.iters = 0
         self.steps = 0
         self.levels = 0
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
         self.profiling = profiling
 
     def add(self, name: str, ns: int) -> None:
@@ -197,7 +205,16 @@ def record(kind: str):
     finally:
         stack.pop()
     _ring.append(Record(kind, tuple(rec.ns), rec.iters, rec.steps,
-                        rec.levels))
+                        rec.levels, rec.h2d_bytes, rec.d2h_bytes))
+
+
+def add_bytes(h2d: int = 0, d2h: int = 0) -> None:
+    """Count vector bytes staged to the device (``h2d``) and back
+    (``d2h``) into the record opened last, if any."""
+    rec = current()
+    if rec is not None:
+        rec.h2d_bytes += h2d
+        rec.d2h_bytes += d2h
 
 
 class LoopClock:
