@@ -603,7 +603,7 @@ def poll_cost(ps, b, iters):
     return out
 
 
-BOUNDARY_REPS = 5             # turns of the boundary check's three modes
+BOUNDARY_REPS = 5             # turns of the boundary check's two modes
 BOUNDARY_SPANS = ("solve.prep.b", "solve.prep.x0", "solve.prep.sync",
                   "solve.finish")
 
@@ -613,13 +613,10 @@ def boundary_check(ps, tag):
     card, for a b drawn as the benchmark draws it (uniform on [-1, 1) in
     the solver's dtype): the medians over BOUNDARY_REPS solves each of
     ``solve.prep.b``, ``.x0``, ``.sync`` and ``solve.finish`` with the
-    staging page-locked (the default on a card) and pageable, in turns,
-    beside the same parts done as before the staging (x0 made by np.ones
-    on the host; b and x0 cast on the host and copied from pageable
-    memory; x and each scalar read back on its own).  Checked: the three
-    give bitwise one x, count and history, the default x0 gives bitwise
-    what an explicit ones does, an answer is left as it was by the next
-    solve, and each solve counts one b up and one x down."""
+    staging page-locked (the default on a card) and pageable, in turns.
+    Checked: the two give bitwise one x, count and history, the default x0
+    gives bitwise what an explicit ones does, an answer is left as it was
+    by the next solve, and each solve counts one b up and one x down."""
     ps = bs.PreparedSolver(ps.a, ps.op, ps.pre,
                            ps._config.replace(true_residual=False),
                            ps.dt_setup)
@@ -629,23 +626,6 @@ def boundary_check(ps, tag):
     b = rng.uniform(-1.0, 1.0, n).astype(dt)
     b2 = rng.uniform(-1.0, 1.0, n).astype(dt)
     stage = ps._staging
-
-    def before():
-        t = [time.perf_counter()]
-        bd = ps.op.pad_vec(b)
-        t.append(time.perf_counter())
-        x0d = ps.op.pad_vec(np.ones(n))
-        t.append(time.perf_counter())
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        out = ps._loop(x0d, bd)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        back = bs._read_back(ps.op, out)
-        t.append(time.perf_counter())
-        return back, dict(zip(BOUNDARY_SPANS,
-                              (t[1] - t[0], t[2] - t[1], t[3] - t[2],
-                               t[5] - t[4])))
 
     def staged(pinned):
         if stage._pin != pinned:
@@ -660,31 +640,27 @@ def boundary_check(ps, tag):
                 r.residual_history)
         return back, {k: rec.seconds(k) for k in BOUNDARY_SPANS}
 
-    modes = {"before": before, "pinned": lambda: staged(True),
+    modes = {"pinned": lambda: staged(True),
              "pageable": lambda: staged(False)}
     times = {m: [] for m in modes}
     backs = {}
     for _ in range(BOUNDARY_REPS):
-        for m in ("before", "pinned", "pageable", "pageable", "pinned",
-                  "before"):
+        for m in ("pinned", "pageable", "pageable", "pinned"):
             backs[m], t = modes[m]()
             times[m].append(t)
-    staged(True)
     for m in modes:
         med = {k: statistics.median(t[k] * 1e3 for t in times[m])
                for k in BOUNDARY_SPANS}
         print(f"boundary {tag} {m}: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in med.items())
             + f"; prep + finish {sum(med.values()):.3f} ms", flush=True)
-    ref = backs["before"]
-    for m in ("pinned", "pageable"):
-        x, status, iters, nrmr, nrmr0, hist = backs[m]
-        if not (x.tobytes() == ref[0].tobytes()
-                and int(status) == ref[1] and iters == ref[2]
-                and (nrmr, nrmr0) == (ref[3], ref[4])
-                and hist.tobytes() == ref[5].tobytes()):
-            raise RuntimeError(f"boundary {tag}: the {m} solve is not"
-                               f" bitwise the solve before the staging")
+    ref = backs["pinned"]
+    x, status, iters, nrmr, nrmr0, hist = backs["pageable"]
+    if not (x.tobytes() == ref[0].tobytes() and status == ref[1]
+            and iters == ref[2] and (nrmr, nrmr0) == (ref[3], ref[4])
+            and hist.tobytes() == ref[5].tobytes()):
+        raise RuntimeError(f"boundary {tag}: the pageable solve is not"
+                           f" bitwise the pinned one")
     r1 = ps.solve(b)
     r_ones = ps.solve(b, x0=np.ones(n))
     if not (r1.x.tobytes() == r_ones.x.tobytes()
@@ -697,10 +673,10 @@ def boundary_check(ps, tag):
     if r1.x.tobytes() != kept.tobytes() or np.array_equal(r1.x, r2.x):
         raise RuntimeError(f"boundary {tag}: the next solve changed an"
                            f" answer")
-    print(f"boundary {tag}: {ref[2]} iterations, bitwise one answer before"
-          f" the staging, staged pinned and pageable; default x0 ="
-          f" explicit ones; an answer outlives the next solve; up"
-          f" {b.nbytes} B, down {n * b.itemsize} B a solve", flush=True)
+    print(f"boundary {tag}: {ref[2]} iterations, bitwise one answer staged"
+          f" pinned and pageable; default x0 = explicit ones; an answer"
+          f" outlives the next solve; up {b.nbytes} B, down"
+          f" {n * b.itemsize} B a solve", flush=True)
 
 
 # device kernels by name: which part of an iteration each one is (the first

@@ -20,10 +20,12 @@ command line (``python -m cuda_mat_tpu_torch.cli``), the generator
 (``python -m cuda_mat_tpu_torch.generator``), the host utilities
 (checkpoints, norms, dense QR, the OMP text formats) and the numpy CPU
 oracles; and the row-partitioned distributed solver
-(:mod:`cuda_mat_tpu_torch.parallel`, on stock torch ops; its kernel
-engines are not yet ported).  The hot kernels are
-hand-written for Hopper (``csrc/*.cu``, built with nvcc at first use); on
-CPU tensors they run as plain PyTorch.
+(:mod:`cuda_mat_tpu_torch.parallel`) with its three local engines: stock
+torch ops, the banded DIA kernel B3 and the stencil kernels B1/B2/B5 a
+shard.  Every entry point solves through one
+:meth:`PreparedSolver.solve`, the host boundary of every solve.  The hot
+kernels are hand-written for Hopper (``csrc/*.cu``, built with nvcc at
+first use); on CPU tensors they run as plain PyTorch.
 """
 
 from cuda_mat_tpu_torch.config import SolverConfig

@@ -243,7 +243,7 @@ class SplitOperator:
     (the reference's mult_spec + csrmv accumulate pair,
     pbicgstab.cu:675-676).  ``d`` lies in ``a0``'s vector layout: on a
     padded ``a0`` it is padded alongside the vectors with zero pads, so the
-    padding stays a fixed point."""
+    padding stays a fixed point.  Its vectors are ``a0``'s."""
 
     a0: object          # any operator
     d: torch.Tensor     # in a0's layout
@@ -255,6 +255,16 @@ class SplitOperator:
     @property
     def m(self) -> int:
         return self.a0.m
+
+    @property
+    def device(self) -> torch.device:
+        return self.a0.device
+
+    def pad_vec(self, v) -> torch.Tensor:
+        return self.a0.pad_vec(v)
+
+    def unpad_vec(self, v: torch.Tensor) -> torch.Tensor:
+        return self.a0.unpad_vec(v)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return self.d * x + self.a0.matvec(x)

@@ -7,7 +7,8 @@ Each of the ``ndev`` shards owns ``shard_rows`` contiguous rows.  Banded
 matrices need a halo of ``w`` (the bandwidth) x entries from each
 neighbouring shard; general ones gather all of x.  The matrix is padded to
 ``npad`` rows with identity rows and b/x0 with zeros, so the pad entries
-stay exactly zero through every iteration and add nothing to a dot.
+stay exactly zero through every iteration and add nothing to a dot
+(``pad_vector``'s ``fill`` puts 1 there for an inverse diagonal instead).
 """
 
 from __future__ import annotations
@@ -73,8 +74,8 @@ class RowPartitionedBanded:
                 data[k, n:] = 1.0  # identity padding rows
         return cls(n, npad, ndev, shard_rows, w, offsets, data)
 
-    def pad_vector(self, v: np.ndarray) -> np.ndarray:
-        out = np.zeros(self.npad, dtype=v.dtype)
+    def pad_vector(self, v: np.ndarray, fill: float = 0.0) -> np.ndarray:
+        out = np.full(self.npad, fill, dtype=v.dtype)
         out[: self.n] = v
         return out
 
@@ -146,13 +147,8 @@ class RowPartitionedStencil:
         return cls(dia.n, c_grid, stride, np_true, npad, ndev, shard_rows,
                    w, block, sub, terms, sterms, gap)
 
-    def pad_vector(self, v: np.ndarray) -> np.ndarray:
-        r = self.n // self.c_grid
-        g = np.zeros((r, self.stride), dtype=v.dtype)
-        g[:, : self.c_grid] = np.asarray(v).reshape(r, self.c_grid)
-        out = np.zeros(self.npad, dtype=v.dtype)
-        out[: self.np_true] = g.reshape(-1)
-        return out
+    def pad_vector(self, v: np.ndarray, fill: float = 0.0) -> np.ndarray:
+        return self.strided_scatter(v, fill)
 
     def unpad_vector(self, v: np.ndarray) -> np.ndarray:
         r = self.n // self.c_grid
@@ -202,8 +198,8 @@ class RowPartitionedELL:
         diag[:n] = csr.diagonal()
         return cls(n, npad, ndev, shard_rows, values, cols, diag)
 
-    def pad_vector(self, v: np.ndarray) -> np.ndarray:
-        out = np.zeros(self.npad, dtype=v.dtype)
+    def pad_vector(self, v: np.ndarray, fill: float = 0.0) -> np.ndarray:
+        out = np.full(self.npad, fill, dtype=v.dtype)
         out[: self.n] = v
         return out
 

@@ -13,19 +13,17 @@ and the host reads ``status`` and ``i`` once per iteration.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from cuda_mat_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from cuda_mat_tpu_torch.formats.csr import CSRMatrix
 from cuda_mat_tpu_torch.ops.operators import make_operator
-from cuda_mat_tpu_torch.solvers.bicgstab import (LoopWatch,
-                                                 _attach_true_residual,
+from cuda_mat_tpu_torch.solvers.bicgstab import (LoopWatch, PreparedSolver,
                                                  _dtype_of)
-from cuda_mat_tpu_torch.solvers.result import SolveResult, SolverStatus
+from cuda_mat_tpu_torch.solvers.result import SolveResult
+from cuda_mat_tpu_torch.utils import timing
 from cuda_mat_tpu_torch.utils.timing import device_sync
 
 
@@ -72,6 +70,20 @@ def bicg_core(matvec, matvec_t, b: torch.Tensor, eps: float, maxit: int,
     return x, status_t, i_t, check, norm, hist
 
 
+class _BiCGSolver(PreparedSolver):
+    """The loop is :func:`bicg_core` over ``op`` and Aᵀ's ``op_t``; it
+    starts from its own ones, so the x0 it is given is not read."""
+
+    def __init__(self, a, op, op_t, config: SolverConfig, dt_setup: float):
+        super().__init__(a, op, None, config, dt_setup)
+        self.op_t = op_t
+
+    def _loop(self, x0d: torch.Tensor, bd: torch.Tensor):
+        cfg = self._config
+        return bicg_core(self.op.matvec, self.op_t.matvec, bd, cfg.tol,
+                         cfg.maxit, cfg.debug)
+
+
 def bicg(a, b, config: SolverConfig = DEFAULT_CONFIG,
          format: Optional[str] = None, device="cuda") -> SolveResult:
     """Solve Ax = b with plain BiCG, x0 = ones, to the relative residual
@@ -80,25 +92,17 @@ def bicg(a, b, config: SolverConfig = DEFAULT_CONFIG,
     matrix, whose operator and its transpose's are built by
     :func:`~cuda_mat_tpu_torch.ops.operators.make_operator` (``format``) on
     ``device``; or a pair ``(op, op_t)`` of unpadded operators for A and
-    Aᵀ, used on their own device."""
+    Aᵀ, used on their own device.  Solved as a
+    :class:`~cuda_mat_tpu_torch.solvers.bicgstab.PreparedSolver`."""
     dt = _dtype_of(config)
-    t0 = time.perf_counter()
-    if isinstance(a, CSRMatrix):
-        op = make_operator(a, dtype=dt, format=format, device=device)
-        op_t = make_operator(a.transpose(), dtype=dt, format=format,
-                             device=device)
-    else:
-        op, op_t = a
-    bd = op.pad_vec(np.asarray(b))
-    device_sync(op.device)
-    t1 = time.perf_counter()
-    x, status, iters, check, norm, hist = bicg_core(
-        op.matvec, op_t.matvec, bd, config.tol, config.maxit, config.debug)
-    device_sync(op.device)
-    t2 = time.perf_counter()
-    res = SolveResult(
-        x=x.cpu().numpy(), status=SolverStatus.CONVERGED if int(status) == 1
-        else SolverStatus.MAXIT, iters=int(iters), residual=float(check),
-        residual0=float(norm), dt_alg=t2 - t1, dt_setup=t1 - t0,
-        residual_history=hist.cpu().numpy())
-    return _attach_true_residual(res, a, b, config)
+    with timing.record("make_solver") as rec:
+        with timing.span("make_solver.operator"):
+            if isinstance(a, CSRMatrix):
+                op = make_operator(a, dtype=dt, format=format, device=device)
+                op_t = make_operator(a.transpose(), dtype=dt, format=format,
+                                     device=device)
+            else:
+                op, op_t = a
+        device_sync(op.device)
+    return _BiCGSolver(a, op, op_t, config,
+                       rec.seconds("make_solver")).solve(b)

@@ -30,7 +30,9 @@ The names a record keeps, nested as the program opens them:
   MILU(0) factorization) and, on exact ILU(0)'s ``"levels"`` route,
   ``precond.levels`` (the level analysis of both triangles and its
   upload; the record counts the levels of a forward and a backward sweep
-  together as ``levels``);
+  together as ``levels``); ``bicgstab_split`` and ``bicg`` build no
+  preconditioner and open no ``make_solver.precond``; the distributed
+  solver opens neither phase, only ``precond.factor`` where it factors;
 - ``solve``: ``solve.prep`` (``solve.prep.b``: b staged, uploaded, cast
   and padded on the device; ``solve.prep.x0``: the default x0 made on the
   device, or a caller's x0 as b; ``solve.prep.sync``: the wait for the

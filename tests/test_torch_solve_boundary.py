@@ -11,7 +11,11 @@ the CPU, where it stages through plain host tensors:
   it was, and the staging buffers are made once and reused; an answer's
   memory serves a later answer only once no array views it;
 - a solve's record counts the bytes of the vectors that crossed (b and a
-  caller's x0 up, x down);
+  caller's x0 up, x down), by ``make_solver``, ``bicgstab_split`` and
+  ``bicg`` alike;
+- ``bicgstab_split`` and ``bicg`` give bitwise the answer, count and
+  history of their loops (``hform_core``, ``bicg_core``) called directly
+  on the same device vectors;
 - solves of one solver from several threads take turns at the staging
   buffers and run their loops side by side: each gets the answer it would
   get alone;
@@ -28,11 +32,13 @@ import torch
 
 import cuda_mat_tpu_torch as ct
 from cuda_mat_tpu_torch.formats.reorder import permute_csr
-from cuda_mat_tpu_torch.models.problems import grid_laplacian
+from cuda_mat_tpu_torch.models.problems import grid_laplacian, split_form
 from cuda_mat_tpu_torch.ops.dia_spmv import PallasDIAOperator
-from cuda_mat_tpu_torch.ops.operators import CSROperator
+from cuda_mat_tpu_torch.ops.operators import (CSROperator, SplitOperator,
+                                              make_operator)
 from cuda_mat_tpu_torch.ops.stencil import ConstStencilOperator
 from cuda_mat_tpu_torch.ops.stencil2d import StencilOperator2D
+from cuda_mat_tpu_torch.solvers.bicg import bicg_core
 from cuda_mat_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
@@ -142,18 +148,58 @@ def test_an_answers_memory_serves_again_only_once_unused(case, keep_a_view):
         np.testing.assert_array_equal(view[:, 0], kept[3:])
 
 
-@pytest.mark.parametrize("b_dtype,explicit_x0", [
-    (np.float32, False), (np.float32, True), (np.float64, False)])
-def test_a_solve_counts_the_bytes_that_cross(b_dtype, explicit_x0):
-    ps = _solver("stencil")
-    n = ps.n
-    ps.solve(_b(n, dtype=b_dtype),
-             x0=np.ones(n, np.float32) if explicit_x0 else None)
+@pytest.mark.parametrize("entry,b_dtype,explicit_x0", [
+    pytest.param("make_solver", np.float32, False, id="float32-False"),
+    pytest.param("make_solver", np.float32, True, id="float32-True"),
+    pytest.param("make_solver", np.float64, False, id="float64-False"),
+    ("bicgstab_split", np.float64, False),
+    ("bicgstab_split", np.float32, True),
+    ("bicg", np.float64, False)])
+def test_a_solve_counts_the_bytes_that_cross(entry, b_dtype, explicit_x0):
+    a = grid_laplacian(24, 16)
+    n = a.n
+    b = _b(n, dtype=b_dtype)
+    x0 = np.ones(n, np.float32) if explicit_x0 else None
+    if entry == "make_solver":
+        _solver("stencil").solve(b, x0=x0)
+    elif entry == "bicgstab_split":
+        a0, d = split_form(a)
+        ct.bicgstab_split(a0, d, x0, b, NEUMANN, device="cpu")
+    else:
+        ct.bicg(a, b, NEUMANN, device="cpu")
     rec = timing.records()[-1]
     assert rec.kind == "solve"
     item = np.dtype(b_dtype).itemsize
     assert rec.h2d_bytes == n * item + (n * 4 if explicit_x0 else 0)
     assert rec.d2h_bytes == n * 4
+
+
+@pytest.mark.parametrize("entry", ["bicgstab_split", "bicg"])
+def test_an_entry_point_gives_the_bits_of_its_loop(entry):
+    a = grid_laplacian(24, 16)
+    b = _b(a.n)
+    cfg = ILU64.replace(precond="none")
+    if entry == "bicgstab_split":
+        a0, d = split_form(a)
+        x0 = _b(a.n, seed=7)
+        res = ct.bicgstab_split(a0, d, x0, b, cfg, device="cpu")
+        op = bs._as_op(a0, torch.float64, torch.device("cpu"))
+        split = SplitOperator(op, op.pad_vec(d))
+        out = bs.hform_core(split.matvec, torch.dot, op.pad_vec(x0),
+                            op.pad_vec(b), cfg.tol, cfg.breakdown_tol,
+                            cfg.maxit)
+    else:
+        res = ct.bicg(a, b, cfg, device="cpu")
+        op = make_operator(a, dtype=torch.float64, device="cpu")
+        op_t = make_operator(a.transpose(), dtype=torch.float64,
+                             device="cpu")
+        out = bicg_core(op.matvec, op_t.matvec, op.pad_vec(b), cfg.tol,
+                        cfg.maxit)
+    x, status, iters, nrmr, nrmr0, hist = out
+    assert res.iters == int(iters) > 0 and int(res.status) == int(status)
+    assert res.x.tobytes() == op.unpad_vec(x).numpy().tobytes()
+    assert res.residual_history.tobytes() == hist.numpy().tobytes()
+    assert (res.residual, res.residual0) == (float(nrmr), float(nrmr0))
 
 
 @pytest.mark.parametrize("b", [np.ones(10), np.ones((24 * 16, 1)),

@@ -1,8 +1,11 @@
 """The port's recorder (``cuda_mat_tpu_torch.utils.timing``) on the CPU.
 
-- ``make_solver`` then ``solve`` leave one ``make_solver`` record with its
-  operator, preconditioner and factorization phases and one ``solve``
-  record, on the padded stencil layout and on true-n CSR vectors;
+- every entry point leaves one ``make_solver`` record of the phases it
+  builds and one ``solve`` record of the same spans: ``make_solver`` then
+  ``solve`` on the padded stencil layout and on true-n CSR vectors,
+  ``solve``, ``bicgstab``, ``bicgstab_split``, ``bicgstab_lu_precond``,
+  ``bicg`` and the distributed solver (a mesh of 2 row shards on the CPU;
+  across two gloo processes in tests/test_torch_parallel_gloo.py);
   ``dt_setup`` and ``dt_alg`` are those records' ``make_solver`` and
   ``solve.loop`` spans, and the solve counts the steps its loop executed;
 - ``loop.step`` and ``loop.poll`` are summed over exactly those steps (a
@@ -13,9 +16,7 @@
   phase, each restart's host residual and its inner solve;
 - without a profiler no ``record_function`` is made;
 - the ring keeps the newest :data:`~cuda_mat_tpu_torch.utils.timing.
-  CAPACITY` records;
-- the distributed solver records the same solve (a mesh of 2 row shards on
-  the CPU; across two gloo processes in tests/test_torch_parallel_gloo.py).
+  CAPACITY` records.
 """
 
 import json
@@ -53,6 +54,8 @@ MAKE_SOLVER_SPANS = ("make_solver", "make_solver.operator",
 SOLVE_SPANS = ("solve", "solve.prep", "solve.prep.b", "solve.prep.x0",
                "solve.prep.sync", "solve.loop", "loop.step", "loop.poll",
                "solve.finish")
+H64 = ct.SolverConfig(dtype="float64", tol=1e-6)
+ILU64 = CASES["csr-ilu0"][0]
 
 
 def _system():
@@ -60,9 +63,11 @@ def _system():
     return a, np.random.default_rng(3).uniform(-1.0, 1.0, a.n)
 
 
-def _steps(res) -> int:
-    """Loop steps of a preconditioned solve: the written history pairs."""
-    return int(np.count_nonzero(res.residual_history[0::2] >= 0))
+def _steps(res, pairs: bool = True) -> int:
+    """Loop steps of a solve: the written history pairs of a preconditioned
+    loop, the written entries of the h-form and BiCG loops."""
+    hist = res.residual_history[0::2] if pairs else res.residual_history
+    return int(np.count_nonzero(hist >= 0))
 
 
 def _new_records(fn):
@@ -84,21 +89,52 @@ def _solve(case):
     return ps, ps.solve(b)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+def _prepared(case):
+    cfg, fmt = CASES[case]
+    return (lambda a, b: ct.make_solver(a, cfg, format=fmt,
+                                        device="cpu").solve(b),
+            MAKE_SOLVER_SPANS, True)
+
+
+# name: (one call on (a, b), its make_solver record's spans, whether its
+# loop writes a history pair a step)
+ENTRY_POINTS = {
+    **{case: _prepared(case) for case in CASES},
+    "solve": (lambda a, b: ct.solve(a, b, ILU64, device="cpu"),
+              MAKE_SOLVER_SPANS, True),
+    "bicgstab": (lambda a, b: ct.bicgstab(a, b, H64, device="cpu"),
+                 ("make_solver", "make_solver.operator",
+                  "make_solver.precond"), False),
+    "bicgstab_split": (lambda a, b: ct.bicgstab_split(
+        a, np.full(a.n, 0.5), np.zeros(a.n), b, H64, device="cpu"),
+        ("make_solver", "make_solver.operator"), False),
+    "bicgstab_lu_precond": (lambda a, b: ct.bicgstab_lu_precond(
+        a, b, ILU64, device="cpu"), MAKE_SOLVER_SPANS, True),
+    "bicg": (lambda a, b: ct.bicg(a, b, H64, device="cpu"),
+             ("make_solver", "make_solver.operator"), False),
+    "distributed": (lambda a, b: make_dist_bicgstab(
+        a, make_mesh(2, device="cpu"),
+        ct.SolverConfig(precond="jacobi", dtype="float64", tol=1e-8)
+    ).solve(b), ("make_solver",), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENTRY_POINTS))
 def test_make_solver_and_solve_leave_one_record_each(case):
-    (ps, res), recs = _new_records(lambda: _solve(case))
+    call, setup_spans, pairs = ENTRY_POINTS[case]
+    res, recs = _new_records(lambda: call(*_system()))
     assert [r.kind for r in recs] == ["make_solver", "solve"]
     setup, solve = recs
-    assert set(setup.spans) == set(MAKE_SOLVER_SPANS)
-    assert ps.dt_setup == setup.seconds("make_solver")
-    assert setup.seconds("make_solver.operator") \
-        + setup.seconds("make_solver.precond") <= ps.dt_setup
-    assert setup.seconds("precond.factor") \
-        <= setup.seconds("make_solver.precond")
+    assert set(setup.spans) == set(setup_spans)
+    assert res.dt_setup == setup.seconds("make_solver")
+    s = setup.spans
+    assert s.get("make_solver.operator", 0.0) \
+        + s.get("make_solver.precond", 0.0) <= res.dt_setup
+    assert s.get("precond.factor", 0.0) <= s.get("make_solver.precond", 0.0)
 
     assert set(solve.spans) == set(SOLVE_SPANS)
     assert res.converged and solve.iters == res.iters
-    assert solve.steps == _steps(res) > 0
+    assert solve.steps == _steps(res, pairs) > 0
     assert res.dt_alg == solve.seconds("solve.loop")
     s = solve.spans
     assert s["solve.prep.b"] + s["solve.prep.x0"] + s["solve.prep.sync"] \
@@ -119,7 +155,7 @@ def test_loop_sums_each_executed_step_once(case, monkeypatch):
         a, b = _system()
         res = ct.bicgstab(a, b, ct.SolverConfig(dtype="float64", tol=1e-6),
                           device="cpu")
-        steps = int(np.count_nonzero(res.residual_history >= 0))
+        steps = _steps(res, pairs=False)
     else:
         _, res = _solve(case)
         steps = _steps(res)
@@ -269,17 +305,3 @@ def test_refine_cli_profile_shows_residuals_against_inner_solves(tmp_path,
     for res_e, inner_e in zip(by["refine.residual"], by["refine.inner"]):
         assert res_e["ts"] + res_e["dur"] <= inner_e["ts"]
     assert all(_inside(e, refine) for e in by["refine.residual"])
-
-
-def test_distributed_solve_records_the_same_spans():
-    a, b = _system()
-    cfg = ct.SolverConfig(precond="jacobi", dtype="float64", tol=1e-8)
-    (ds, res), recs = _new_records(lambda: (
-        lambda ds: (ds, ds.solve(b)))(make_dist_bicgstab(
-            a, make_mesh(2, device="cpu"), cfg)))
-    assert [r.kind for r in recs] == ["make_solver", "solve"]
-    setup, solve = recs
-    assert ds.dt_setup == setup.seconds("make_solver")
-    assert set(solve.spans) == set(SOLVE_SPANS)
-    assert res.converged and res.dt_alg == solve.seconds("solve.loop")
-    assert solve.iters == res.iters and solve.steps == _steps(res)
