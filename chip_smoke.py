@@ -119,7 +119,10 @@ script exits non-zero:
    banded_laplacian(316), once after a warm-up msolve, with the parts of
    its setup; 5f B8 against its plain twin on the same plans, f32 and
    f64 (within 1e-5 / 1e-12 of max|twin|, two launches bitwise equal) on
-   HPCG 24^3, mat900, the shuffled 316^2 grid and HPCG 104^3, timed at
+   HPCG 24^3, mat900, the shuffled 316^2 grid and HPCG 104^3; the route
+   rule (the chunked form but on the shuffled grid), the chunked form
+   bitwise the grid-barrier one on the same triangles and 20 msolves
+   back to back bitwise, their progress words left 0; both forms timed at
    104^3 in f64 beside torch.triangular_solve of the sparse CSR factors;
    5g HPCG's 104^3 problem (models/problems.hpcg27) through
    make_solver in f64: the "levels" route, 722 levels a sweep, two B8
@@ -2140,16 +2143,20 @@ def hpcg_matrix(side):
     return problems.hpcg27(side, side, side)
 
 
-def level_check(tag, tri, f, stats):
+def level_check(tag, tri, f, stats, grid=None):
     """Kernel B8's sweeps and msolve on ``tri`` against its plain twin on
     the same plans (run on the card): within TRISOLVE_BOUND of max|twin|,
-    two launches bitwise equal, or raise."""
+    two launches bitwise equal; where ``grid`` (the same triangles in the
+    grid layout) is given, the chunked kernel bitwise equal to the
+    grid-barrier one, and 20 msolves back to back bitwise equal with every
+    progress word 0 after them; or raise."""
     dtype = tri.lower.vals.dtype
     for what in ("solve_lower", "solve_upper", "msolve"):
         poison_allocator(f)
         yk = getattr(tri, what)(f)
         poison_allocator(f)
         yk2 = getattr(tri, what)(f)
+        yg = yk if grid is None else getattr(grid, what)(f)
         plans = {"solve_lower": (tri.lower,), "solve_upper": (tri.upper,),
                  "msolve": (tri.lower, tri.upper)}[what]
         yt = f
@@ -2158,26 +2165,53 @@ def level_check(tag, tri, f, stats):
         torch.cuda.synchronize()
         rel = float((yk - yt).abs().max()) / float(yt.abs().max())
         line = (f"5f {tag} {str(dtype)[6:]} B8 {what}: levels"
-                f" {tri.lower.levels}/{tri.upper.levels}, grid"
+                f" {tri.lower.levels}/{tri.upper.levels}, chunks"
+                f" {level_chunks(tri)}, grid"
                 f" {tri.lower.blocks}/{tri.upper.blocks} blocks;"
                 f" max|kernel - twin| / max|twin| = {rel!r};"
                 f" two launches bitwise"
                 f" {'equal' if torch.equal(yk, yk2) else 'DIFFER'};"
                 f" kernel equals twin bitwise: {torch.equal(yk, yt)}")
+        if grid is not None:
+            line += (f"; chunked equals grid-barrier bitwise:"
+                     f" {torch.equal(yk, yg)}")
         print(line, flush=True)
         stats["level_sweep"]["max_abs_err"] = max(
             stats["level_sweep"]["max_abs_err"], float((yk - yt).abs().max()))
         if not (torch.isfinite(yk).all() and torch.equal(yk, yk2)
-                and rel <= TRISOLVE_BOUND[dtype]):
+                and torch.equal(yk, yg) and rel <= TRISOLVE_BOUND[dtype]):
             raise RuntimeError(line + " — outside the bound")
+    if grid is None:
+        return
+    first = tri.msolve(f)
+    runs = [tri.msolve(f) for _ in range(20)]
+    torch.cuda.synchronize()
+    same = sum(torch.equal(first, x) for x in runs)
+    dirty = sum(int(torch.count_nonzero(p.chunks.flags))
+                for p in (tri.lower, tri.upper))
+    line = (f"5f {tag} {str(dtype)[6:]} B8 chunked: 20 msolves back to back,"
+            f" {same} bitwise the first; progress words left nonzero:"
+            f" {dirty}")
+    print(line, flush=True)
+    if same != 20 or dirty:
+        raise RuntimeError(line)
+
+
+def level_chunks(tri):
+    """``lower/upper`` chunks of a level solver's sweeps (0: the grid
+    layout)."""
+    return "/".join(str(p.chunks.count if p.chunks else 0)
+                    for p in (tri.lower, tri.upper))
 
 
 def level_parity(dev, stats):
     """5f: kernel B8 against its plain twin on the same plans (run on the
     card), f64 and f32 (level_check) on HPCG 24³, mat900, the shuffled 316²
-    grid and HPCG 104³, the cell's shape (722 levels a sweep, 85 blocks);
-    there also the f64 msolve timed (CUDA events, launch to launch) beside
-    its bound, its level steps and the library's triangular solves."""
+    grid and HPCG 104³, the cell's shape (722 levels a sweep, 103-104
+    chunks); the route rule (chunks on all but the shuffled grid, whose
+    band is nearly n); the chunked kernel against the grid-barrier one on
+    the same triangles; at 104³ also both f64 msolves timed beside their
+    bound, the twin's and the library's triangular solves."""
     cases = (("hpcg 24³", hpcg_matrix(24)),
              ("mat900", ct.load_mm_sparse_matrix(
                  os.path.join(ROOT, "data", "mat900.mtx"))),
@@ -2189,32 +2223,50 @@ def level_parity(dev, stats):
             t0 = time.perf_counter()
             tri = lv.LevelTriSolver.from_factor(a, m, dtype=dtype, device=dev)
             t_setup = time.perf_counter() - t0
+            if bool(tri.chunks) == tag.startswith("shuffled"):
+                raise RuntimeError(f"5f {tag}: chunks {level_chunks(tri)}"
+                                   " against the route rule")
+            grid = None if not tri.chunks else lv.LevelTriSolver.from_factor(
+                a, m, dtype=dtype, device=dev, route="grid")
             f = torch.from_numpy(np.random.default_rng(9).standard_normal(
                 a.n)).to(dtype).to(DEVICE)
-            level_check(tag, tri, f, stats)
+            level_check(tag, tri, f, stats, grid)
             if a.n == HPCG_SIDE ** 3 and dtype is torch.float64:
-                level_timing(a, tri, f, t_setup, stats)
+                level_timing(a, tri, grid, f, t_setup, stats)
+            del tri, grid
 
 
-def level_timing(a, tri, f, t_setup, stats):
-    """5f at HPCG 104³, f64: B8's msolve and its twin's timed, and the
-    library's (torch.triangular_solve of the sparse CSR factors, cuSPARSE's
+def level_timing(a, tri, grid, f, t_setup, stats):
+    """5f at HPCG 104³, f64: B8's msolve on the chunked layout and on the
+    grid barrier (CUDA events launch to launch, and the device time of 20
+    msolves queued back to back), its twin's, and the library's
+    (torch.triangular_solve of the sparse CSR factors, cuSPARSE's
     triangular solve) beside them."""
-    ms = cuda_ms(lambda: tri.msolve(f))
+    out = {}
+    for name, t in (("chunked", tri), ("grid barrier", grid)):
+        ms = cuda_ms(lambda: t.msolve(f))
+        dev_ms = cuda_ms(lambda: [t.msolve(f) for _ in range(20)],
+                         reps=5) / 20
+        out[name] = (ms, dev_ms)
     twin = cuda_ms(lambda: lv.level_sweep_plain(
         lv.level_sweep_plain(f, tri.lower), tri.upper), reps=3)
     item = f.element_size()
+    ms, dev_ms = out["chunked"]
     stats["level_sweep"].update(bound((a.nnz + 2 * a.n) * item,
                                       2 * (a.nnz - a.n) + a.n),
-                                ms=ms, plain_ms=twin)
-    print(f"5f hpcg {HPCG_SIDE}³ f64 B8 msolve: {ms:.4f} ms (launch to"
-          f" launch, median of 20; {ms * 1e3 / tri.levels:.3f} µs a level"
-          f" step over {tri.levels} steps), bound"
+                                ms=ms, device_ms=dev_ms, plain_ms=twin)
+    each = "; ".join(
+        f"{k} {v[0]:.4f} ms launch to launch, {v[1]:.4f} ms device"
+        f" ({v[1] * 1e3 / tri.levels:.3f} µs a level step over"
+        f" {tri.levels} steps)" for k, v in out.items())
+    print(f"5f hpcg {HPCG_SIDE}³ f64 B8 msolve: {each}; bound"
           f" {stats['level_sweep']['bound_ms']:.4f} ms"
           f" ({stats['level_sweep']['bound_by']}), twin on the card"
-          f" {twin:.1f} ms; widest level {tri.lower.widest} rows, grid"
-          f" {tri.lower.blocks} blocks; level analysis and upload"
-          f" {t_setup:.2f} s", flush=True)
+          f" {twin:.1f} ms; chunks {level_chunks(tri)} of"
+          f" {tri.lower.chunks.width} rows, ring"
+          f" {tri.lower.chunks.stages} stages of {tri.lower.chunks.slot} B;"
+          f" widest level {tri.lower.widest} rows; level analysis and"
+          f" upload {t_setup:.2f} s", flush=True)
     trisolve_library(a, tri, stats, keys=("level_sweep", None))
 
 
@@ -2231,10 +2283,12 @@ def hpcg_solve(dev):
     pre = getattr(ps.pre, "inner", ps.pre)
     want = 7 * HPCG_SIDE - 6
     if pre.route != "levels" or (pre.tri.lower.levels,
-                                 pre.tri.upper.levels) != (want, want):
+                                 pre.tri.upper.levels) != (want, want) \
+            or not pre.tri.lower.chunks or not pre.tri.upper.chunks:
         raise RuntimeError(f"5g: route {pre.route}, levels"
-                           f" {getattr(pre.tri, 'levels', None)}; want"
-                           f" levels, {want} a sweep")
+                           f" {getattr(pre.tri, 'levels', None)}, chunks"
+                           f" {getattr(pre.tri, 'chunks', None)}; want"
+                           f" levels, {want} a sweep, chunked")
     b = np.random.default_rng(11).uniform(-1.0, 1.0, a.n)
     ps.solve(b)
     before = lv.level_sweep.launches
@@ -2246,7 +2300,8 @@ def hpcg_solve(dev):
             f" ILU(0) f64 on {type(ps.op).__name__} and B8: {r.status.name}"
             f" {r.iters} it ({steps} steps), {r.dt_alg * 1e3:.2f} ms"
             f" ({r.dt_alg * 1e3 / max(r.iters, 1):.4f} ms/iter), B8"
-            f" launches {launches}, true relative residual {true_rel!r};"
+            f" launches {launches} (chunks {level_chunks(pre.tri)}), true"
+            f" relative residual {true_rel!r};"
             f" make_solver {t_setup:.2f} s; peak"
             f" {torch.cuda.max_memory_allocated()} B")
     print(line, flush=True)

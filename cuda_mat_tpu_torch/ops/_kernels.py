@@ -125,7 +125,9 @@ def trisolve_library() -> ctypes.CDLL:
 def level_library() -> ctypes.CDLL:
     """The level-scheduled triangular sweep B8 (``csrc/level_trisolve.cu``)."""
     return _load("level_trisolve.cu", "libcmt_levels", {
-        "cmt_level_sweep": [_I] + [_P] * 8 + [_I, _I, _P]})
+        "cmt_level_sweep": [_I] + [_P] * 8 + [_I, _I, _P],
+        "cmt_level_chunk_sweep": [_I] + [_P] * 10 + [_I] * 7 + [_P]},
+        headers=("tma_ring.cuh",))
 
 
 def dia_library() -> ctypes.CDLL:
@@ -818,22 +820,34 @@ def level_sweep(f: torch.Tensor, plan) -> torch.Tensor:
     """Launch kernel B8 on ``f``'s device and current stream: one sweep of
     ``plan`` (a ``level_trisolve.LevelPlan``) in one cooperative launch of
     ``plan.blocks`` blocks (fewer where the card cannot hold them at
-    once)."""
+    once), in the plan's layout: a block a chunk, or the grid barrier."""
     lib = level_library()
+    ch = plan.chunks
     _check_cuda(f, plan.vals, *(() if plan.diag is None else (plan.diag,)))
+    index = (plan.rows, plan.cols) + ((plan.level_ptr, plan.ptr) if ch is None
+                                      else (ch.groups, ch.ptr, ch.flags))
     if any(t.device != f.device or t.dtype != torch.int32
-           or not t.is_contiguous()
-           for t in (plan.level_ptr, plan.rows, plan.ptr, plan.cols)):
+           or not t.is_contiguous() for t in index):
         raise ValueError("the plan's index arrays must be contiguous int32"
                          " on f's device")
     y = torch.empty_like(f)
+    diag = None if plan.diag is None else plan.diag.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(f.device):
-        rc = lib.cmt_level_sweep(
-            _DTYPE_CODE[f.dtype], f.data_ptr(), y.data_ptr(),
-            plan.level_ptr.data_ptr(), plan.rows.data_ptr(),
-            plan.ptr.data_ptr(), plan.cols.data_ptr(), plan.vals.data_ptr(),
-            None if plan.diag is None else plan.diag.data_ptr(), plan.levels,
-            plan.blocks, torch.cuda.current_stream().cuda_stream)
+        if ch is None:
+            rc = lib.cmt_level_sweep(
+                _DTYPE_CODE[f.dtype], f.data_ptr(), y.data_ptr(),
+                plan.level_ptr.data_ptr(), plan.rows.data_ptr(),
+                plan.ptr.data_ptr(), plan.cols.data_ptr(),
+                plan.vals.data_ptr(), diag, plan.levels, plan.blocks, stream)
+        else:
+            rc = lib.cmt_level_chunk_sweep(
+                _DTYPE_CODE[f.dtype], f.data_ptr(), y.data_ptr(),
+                ch.groups.data_ptr(), ch.ptr.data_ptr(), plan.rows.data_ptr(),
+                plan.cols.data_ptr(), plan.vals.data_ptr(), diag,
+                ch.handover.data_ptr(), ch.flags.data_ptr(), plan.n,
+                ch.width, ch.count, ch.most, ch.stages, ch.slot, plan.blocks,
+                stream)
     _raise_on(lib, rc, "level_sweep")
     return y
 

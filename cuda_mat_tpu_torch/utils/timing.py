@@ -30,7 +30,8 @@ The names a record keeps, nested as the program opens them:
   MILU(0) factorization) and, on exact ILU(0)'s ``"levels"`` route,
   ``precond.levels`` (the level analysis of both triangles and its
   upload; the record counts the levels of a forward and a backward sweep
-  together as ``levels``); ``bicgstab_split`` and ``bicg`` build no
+  together as ``levels``, and their chunks on the chunked layout as
+  ``chunks``); ``bicgstab_split`` and ``bicg`` build no
   preconditioner and open no ``make_solver.precond``; the distributed
   solver opens neither phase, only ``precond.factor`` where it factors;
 - ``solve``: ``solve.prep`` (``solve.prep.b``: b staged, uploaded, cast
@@ -88,7 +89,8 @@ class Record(NamedTuple):
     where it did not run), for a solve its iteration count, the loop
     steps executed (a first-half exit included) and the bytes of vectors
     staged up to the device and down from it, and for a make_solver the
-    levels of its triangular sweeps (0 off the ``"levels"`` route)."""
+    levels of its triangular sweeps (0 off the ``"levels"`` route) and
+    their chunks (0 where no sweep takes the chunked layout)."""
     kind: str
     ns: tuple
     iters: int
@@ -96,6 +98,7 @@ class Record(NamedTuple):
     levels: int = 0
     h2d_bytes: int = 0
     d2h_bytes: int = 0
+    chunks: int = 0
 
     def seconds(self, name: str) -> Optional[float]:
         v = self.ns[_SLOT[name]]
@@ -111,7 +114,7 @@ class OpenRecord:
     """The record of a call in progress (what :func:`record` yields)."""
 
     __slots__ = ("kind", "ns", "iters", "steps", "levels", "h2d_bytes",
-                 "d2h_bytes", "profiling")
+                 "d2h_bytes", "chunks", "profiling")
 
     def __init__(self, kind: str, profiling: bool):
         self.kind = kind
@@ -121,6 +124,7 @@ class OpenRecord:
         self.levels = 0
         self.h2d_bytes = 0
         self.d2h_bytes = 0
+        self.chunks = 0
         self.profiling = profiling
 
     def add(self, name: str, ns: int) -> None:
@@ -207,7 +211,8 @@ def record(kind: str):
     finally:
         stack.pop()
     _ring.append(Record(kind, tuple(rec.ns), rec.iters, rec.steps,
-                        rec.levels, rec.h2d_bytes, rec.d2h_bytes))
+                        rec.levels, rec.h2d_bytes, rec.d2h_bytes,
+                        rec.chunks))
 
 
 def add_bytes(h2d: int = 0, d2h: int = 0) -> None:

@@ -234,3 +234,135 @@ def test_levels_route_matches_jax_blocked_engine_on_hpcg():
     assert rt.status == rj.status == ct.SolverStatus.CONVERGED
     assert abs(rt.iters - rj.iters) <= 2
     np.testing.assert_allclose(rt.x, rj.x, rtol=1e-5, atol=1e-7)
+
+
+# ---- the chunked layout (kernel B8's block-a-chunk form) ----
+
+def _shuffled_316():
+    a = ct.grid_laplacian(316, 316)
+    return reorder.permute_csr(
+        a, np.random.default_rng(0).permutation(a.n).astype(np.int64))
+
+
+CHUNK_CASES = {
+    "hpcg 24^3": lambda: hpcg(24, 24, 24),
+    "grid 316^2": lambda: ct.grid_laplacian(316, 316),
+    "mat900": lambda: ct.load_mm_sparse_matrix(f"{ROOT}/data/mat900.mtx"),
+}
+
+
+def _triangle(a, upper):
+    """One triangle's entries in CSR order (the matrix's own values) and,
+    for U, a diagonal."""
+    rows = np.repeat(np.arange(a.n, dtype=np.int64), a.row_lengths)
+    cols = a.indices.astype(np.int64)
+    keep = cols > rows if upper else cols < rows
+    diag = np.full(a.n, 4.0) if upper else None
+    return rows[keep], cols[keep], a.data[keep].astype(np.float64), diag
+
+
+@pytest.mark.parametrize("upper", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunked_plan_keeps_each_row_beside_what_it_reads(case, upper):
+    """Every row in exactly one chunk, a chunk at least the bandwidth wide
+    and counted in sweep order, positions by (chunk, level), and each
+    entry's column in its own chunk or the chunk before it, at a lower
+    level (there within the group's needed progress), its entries those of
+    the triangle in column order."""
+    a = CHUNK_CASES[case]()
+    rows, cols, vals, diag = _triangle(a, upper)
+    plan = tlv.level_plan(a.n, rows, cols, vals, diag, torch.float64, "cpu")
+    ch = plan.chunks
+    assert ch is not None and plan.level_ptr is None
+    assert ch.width >= int(np.abs(rows - cols).max())
+    assert ch.count == -(-a.n // ch.width)
+    assert not ch.flags.any() and ch.flags.numel() == ch.count
+    at = plan.rows.numpy().astype(np.int64)          # position -> row
+    np.testing.assert_array_equal(np.sort(at), np.arange(a.n))
+    g, ptr = ch.groups.numpy().astype(np.int64), ch.ptr.numpy()
+    r, k = g[:, 2] & 0xFFFF, g[:, 2] >> 16
+    np.testing.assert_array_equal(g[:, 1], np.cumsum(r) - r)
+    chunk_of = np.repeat(np.repeat(np.arange(ch.count), np.diff(ptr)), r)
+    sweep = a.n - 1 - at if upper else at
+    np.testing.assert_array_equal(sweep // ch.width, chunk_of)
+    level = tlv.row_levels(a.n, rows, cols)
+    np.testing.assert_array_equal(np.repeat(ch.group_level.numpy(), r),
+                                  level[at])
+    key = chunk_of * (level.max() + 1) + level[at]
+    assert (np.diff(key) >= 0).all()
+    # each position's slots decoded: (row, column) pairs in column order
+    p = np.repeat(np.arange(a.n), np.repeat(k, r))
+    step = np.arange(p.size) - np.repeat(np.cumsum(np.repeat(k, r))
+                                         - np.repeat(k, r),
+                                         np.repeat(k, r))
+    grp = np.repeat(np.arange(len(r)), r)[p]
+    code = plan.cols.numpy()[g[grp, 0] + step * r[grp] + p - g[grp, 1]]
+    keep = code != -1
+    p, code = p[keep], code[keep].astype(np.int64)
+    first = g[ptr[:-1], 1]
+    src = np.where(code >= 0, first[chunk_of[p]] + code, -code - 2)
+    own = code >= 0
+    assert (chunk_of[src[own]] == chunk_of[p[own]]).all()
+    assert (chunk_of[src[~own]] == chunk_of[p[~own]] - 1).all()
+    assert (level[at[src]] < level[at[p]]).all()
+    # ... and among the previous chunk's first `need` groups
+    gpos = np.repeat(np.arange(len(r)), r)        # group of each position
+    prev = ~own
+    assert (gpos[src[prev]] - ptr[chunk_of[p[prev]] - 1]
+            < g[gpos[p[prev]], 3]).all()
+    same = p[1:] == p[:-1]                       # a row's slots: ascending
+    assert (at[src][1:][same] > at[src][:-1][same]).all()
+    got = np.stack([at[p], at[src]])
+    order = np.lexsort((got[1], got[0]))
+    np.testing.assert_array_equal(got[:, order], np.stack([rows, cols]))
+
+
+@pytest.mark.parametrize("upper", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_twin_on_the_chunked_plan_equals_the_grid_plans(case, upper):
+    a = CHUNK_CASES[case]()
+    rows, cols, vals, diag = _triangle(a, upper)
+    plans = [tlv.level_plan(a.n, rows, cols, vals, diag, torch.float64,
+                            "cpu", route) for route in ("chunks", "grid")]
+    assert plans[0].chunks is not None and plans[1].chunks is None
+    f = torch.from_numpy(np.random.default_rng(8).standard_normal(a.n))
+    got, want = (tlv.level_sweep_plain(f, p) for p in plans)
+    assert torch.equal(got, want)
+
+
+HPCG104_WIDTH = 104 * 104 + 104 + 1   # HPCG 104^3's bandwidth, both sweeps
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["hpcg 24^3", "hpcg 104^3",
+                                  "shuffled 316^2"])
+def test_chunk_route_rule(case, dtype):
+    """HPCG's triangles take the chunked layout (a chunk's values fit a
+    block's shared memory); the shuffled grid, whose band is nearly n,
+    keeps the grid barrier."""
+    item = torch.empty((), dtype=dtype).element_size()
+    if case == "hpcg 104^3":     # the rule alone: no full-size plan here
+        assert tlv.chunks_fit(HPCG104_WIDTH, item)
+        return
+    a = hpcg(24, 24, 24) if case == "hpcg 24^3" else _shuffled_316()
+    rows, cols, vals, _ = _triangle(a, False)
+    width = int(np.abs(rows - cols).max())
+    plan = tlv.level_plan(a.n, rows, cols, vals, None, dtype, "cpu")
+    chunked = case != "shuffled 316^2"
+    assert tlv.chunks_fit(width, item) == chunked
+    assert (plan.chunks is not None) == chunked
+    assert (plan.level_ptr is None) == chunked
+
+
+@pytest.mark.parametrize("route,want", [(None, 2 * 12), ("grid", 0)])
+def test_levels_record_counts_the_chunks(route, want):
+    """A make_solver record counts both sweeps' chunks beside their
+    levels: HPCG 12^3, 12 chunks of 157 rows a sweep, none on the grid
+    layout."""
+    a = hpcg(12, 12, 12)
+    with timing.record("make_solver"):
+        tri = tlv.LevelTriSolver.from_factor(a, ilu0_factorize(a),
+                                             device="cpu", route=route)
+    rec = timing.records()[-1]
+    assert rec.chunks == tri.chunks == want
+    assert rec.levels == tri.levels == 2 * (7 * 12 - 6)
